@@ -1,7 +1,7 @@
-"""lk_tpu — TPU-native Lucas–Kanade dashcam-analysis framework.
+"""lk_tpu — Lucas–Kanade dashcam-analysis framework on JAX/XLA.
 
-A brand-new JAX/XLA/Pallas re-design of the capabilities of
-``chiahuilin0531/LK-Optical-Flow-Method`` (see /root/repo/SURVEY.md): pyramidal
+A JAX/XLA re-design of the capabilities of
+``chiahuilin0531/LK-Optical-Flow-Method`` (see SURVEY.md): pyramidal
 Lucas–Kanade optical flow (dense fields and sparse point tracking), Shi–Tomasi
 feature selection, road-ROI masking, flow-line extraction/filtering,
 cross-point voting and temporally smoothed vanishing-point detection — built as

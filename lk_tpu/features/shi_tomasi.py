@@ -1,4 +1,4 @@
-"""Shi–Tomasi corner selection — the TPU-native ``cv.goodFeaturesToTrack``.
+"""Shi–Tomasi corner selection — the JAX ``cv.goodFeaturesToTrack``.
 
 Reference call sites: LK_Final.py:488,691 (maxCorners=TP_NUM/4=5 per ROI
 sub-mask, qualityLevel=0.3, minDistance=7, blockSize=7).
@@ -16,8 +16,7 @@ Pipeline (mirrors OpenCV's):
    rule (sort by response, accept unless within minDistance of an accepted
    point) — the sorted-accept order and max-then-suppress order pick the
    same set — with only maxCorners cheap reductions instead of a full-image
-   sort (lax.top_k at 415k elements cost ~190 s of XLA compile and 8.5 ms
-   per call on TPU; this formulation compiles in seconds and runs sub-ms).
+   sort (lax.top_k over all ~415k responses of an 860x483 frame).
 
 Returns fixed-capacity slots + validity mask — the framework's universal
 representation for "a variable number of points" (SURVEY.md §7 design stance).
@@ -100,9 +99,8 @@ def good_features_from_response(
 
     def body(i, state):
         cand, out_xy, out_valid = state
-        # Two-stage argmax (rows then columns): a flat argmax over the
-        # unaligned (H*W,) reshape costs ~50 s of XLA TPU compile (measured);
-        # this form compiles in well under a second.
+        # Two-stage argmax (rows then columns) instead of a flat argmax
+        # over an (H*W,) reshape: two small reductions per pick.
         row_max = jnp.max(cand, axis=1)
         yi = jnp.argmax(row_max)
         row = jax.lax.dynamic_slice(cand, (yi, 0), (1, w))[0]

@@ -1,13 +1,11 @@
 """Dense pyramidal Lucas–Kanade optical flow.
 
 The reference only ever tracks ~20 sparse points (reference LK_Final.py:26,
-531-532); the TPU rebuild's flagship kernel computes the same pyramidal LK
-solution *densely* — every pixel is a window center — because on TPU the
-dense formulation is pure stencil/elementwise work that the VPU eats, while
-per-point gathers would leave the chip idle.  The sparse tracker
-(flow/sparse.py) keeps exact per-point OpenCV semantics for the pipeline and
-as the accuracy oracle; this module is the throughput path (BASELINE.json
-north-star: dense pyramidal LK at 1080p).
+531-532); this module computes the same pyramidal LK solution *densely* —
+every pixel is a window center — as pure stencil/elementwise work with fixed
+shapes.  The sparse tracker (flow/sparse.py) keeps exact per-point OpenCV
+semantics for the pipeline and as the accuracy oracle; this module is the
+throughput path (BASELINE.json north-star: dense pyramidal LK at 1080p).
 
 Window-coherent dense formulation
 ---------------------------------
@@ -30,20 +28,14 @@ structure tensor A, so the right-hand side needs only two box sums:
 with D = J(q+v_q) - I(q), gI = Scharr(prev).  Each solve is exact to first
 order, so a few outer warp+solve rounds per level replace OpenCV's 10
 resampling iterations; the per-level schedule (DenseLKConfig.iter_schedule,
-default (2,3,6)) spends rounds at the top level where the search happens.
+default (1,1,1,6)) spends rounds at the top level where the search happens.
 
-TPU mapping
------------
-XLA's 2-D gather lowers to one-element DMAs (~23 ms/1080p frame, measured),
-so the warp is either ops.warp.shift_select_warp (bounded two-pass
-shift-select; portable, but XLA unrolls it into programs whose size scales
-with the array) or the Pallas locality-exploiting kernel
-(flow/pallas_kernels.py, DenseLKConfig.use_pallas_warp) — the production
-path.  Everything else is stencil/elementwise work: 2 box sums + one 2x2
-solve per outer round, fixed shapes, per-pixel masked convergence.
-
-Measured: mean EPE 0.013 px vs cv.calcOpticalFlowPyrLK on dashcam-regime
-motion; 300+ frames/s/chip at 1080p on v5e (bench.py).
+Implementation
+--------------
+Plain jax.numpy/lax, compiled by XLA: per outer round one bounded warp of
+the next frame (ops.warp), two box sums and one 2x2 solve, fixed shapes and
+per-pixel masked convergence.  The warp displacement is clamped to
+DenseLKConfig.level_disp per level, which bounds the trackable motion.
 """
 
 from __future__ import annotations
@@ -58,12 +50,19 @@ from lk_tpu.config import DenseLKConfig, LKConfig
 from lk_tpu.ops.blur import pyr_down
 from lk_tpu.ops.boxfilter import box_sum
 from lk_tpu.ops.gradients import scharr_derivatives
-from lk_tpu.ops.warp import shift_select_warp
 from lk_tpu.ops.resize import upsample2_linear
+from lk_tpu.ops.warp import warp_by_flow
 
 # OpenCV's fixed-point A-matrix is ours/1024 (see flow/sparse.py); its default
 # minEigThreshold of 1e-4 maps to this on the normalized-gradient scale.
 _MIN_EIG_SCALE = 1024.0
+
+
+
+def _bounded_warp(img: jnp.ndarray, flow: jnp.ndarray, r: int) -> jnp.ndarray:
+    """img(p + clamp(flow(p), -r, r)): the 4-tap bilinear gather warp,
+    edge-clamped borders."""
+    return warp_by_flow(img, jnp.clip(flow, -float(r), float(r)))
 
 
 def _effective_cfg(
@@ -72,12 +71,11 @@ def _effective_cfg(
 ) -> LKConfig:
     """Apply DenseLKConfig.pyramid_levels to cfg.max_level (idempotent).
 
-    The dense paths run their own pyramid depth (default 4 levels —
-    measured both faster and far more accurate on v5e, see config.py)
-    while the sparse tracker keeps the reference's maxLevel semantics.
-    Every function in this module that reads cfg.max_level routes through
-    this, so direct calls into chain internals (bench.py, scripts) see the
-    same depth as the public entry points.
+    The dense paths run their own pyramid depth (default 4 levels, see
+    config.py) while the sparse tracker keeps the reference's maxLevel
+    semantics.  Every function in this module that reads cfg.max_level
+    routes through this, so direct calls into chain internals (bench.py)
+    see the same depth as the public entry points.
 
     NOTE: an explicitly passed LKConfig.max_level is overridden whenever
     pyramid_levels != 0; depth sweeps must set
@@ -109,73 +107,6 @@ class DenseFlowResult(NamedTuple):
     valid: jnp.ndarray     # (H, W) bool — structure tensor was solvable
 
 
-def pallas_level_geometry(
-    h0: int, w0: int, dense_cfg: DenseLKConfig
-) -> tuple[bool, int, int, int, int]:
-    """Tile choice + padded frame geometry for the Pallas level kernels:
-    (grads_resident, tile_h, tile_w, padded_h, padded_w).
-
-    Shared between dense_lk_level (which pads its inputs to this geometry)
-    and dense_pyramidal_lk (which, under pallas_pyramid, pre-pads the
-    pyramid base so every level receives its padded geometry directly and
-    the per-level frame/flow pads become no-ops).
-    """
-    from lk_tpu.flow.pallas_kernels import pick_tile_w
-
-    # Swept on v5e at 1080p (th 64/128/136/272 equal within noise; 544
-    # exceeds the 16 MB scoped-VMEM limit) and end-to-end in bench.py
-    # (th=64 everywhere: 630 fps; tall bands at the small levels: 595):
-    # smallest padding wins — th=64 (1080 -> 1088, not -> 1152).
-    # 272/512 are the resident kernel's hard VMEM-layout ceilings;
-    # fused_resident_max_h only tunes the gate downward (0 disables)
-    grads_resident = (
-        dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel
-        and -(-h0 // 8) * 8 <= min(dense_cfg.fused_resident_max_h, 272)
-        and w0 <= 512
-    )
-    if grads_resident:
-        # whole level fits one tile: the VMEM-resident kernel keeps
-        # flow/gradients/A in scratch across all iterations
-        th = -(-h0 // 8) * 8
-    elif dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel:
-        if dense_cfg.fused_tile_h:
-            th = min(dense_cfg.fused_tile_h, -(-h0 // 8) * 8)
-        else:
-            # grads kernel: each grid step carries a fixed ~16 us cost
-            # (DMA issue/wait dominated), so among equal-padding
-            # choices the TALLEST band wins (swept round 2 at 1080p:
-            # 272-row bands 942 vs 928 fps at th=136; 544 regresses —
-            # VMEM pressure).  Pick the tallest of (272, 136, 64) that
-            # minimizes padded rows.
-            hc = -(-h0 // 8) * 8
-            cands = [min(hc, t) for t in (272, 136, 64)]
-            best_pad = min(-(-h0 // t) * t for t in cands)
-            th = next(t for t in cands if -(-h0 // t) * t == best_pad)
-    elif dense_cfg.use_pallas_fused and h0 <= 272:
-        th = min(-(-h0 // 8) * 8, 136)  # fused 270p: 2 bands/iter
-    else:
-        th = 64
-    tw, wp = pick_tile_w(w0)
-    if (not grads_resident and dense_cfg.use_pallas_fused
-            and dense_cfg.fused_grads_in_kernel):
-        if dense_cfg.fused_tile_w:
-            tw = min(dense_cfg.fused_tile_w, -(-w0 // 128) * 128)
-            wp = -(-w0 // tw) * tw
-        elif w0 > 512:
-            # fixed step cost again: allow up to 128 extra pad columns
-            # to take a wider tile (swept round 2 at 1920 wide:
-            # tw=512/pad 2048 beats tw=384/pad 1920, 971 vs 942 fps)
-            for cand in (512, 384, 256):
-                if cand <= tw:
-                    break
-                wp_c = -(-w0 // cand) * cand
-                if wp_c - w0 <= (wp - w0) + 128:
-                    tw, wp = cand, wp_c
-                    break
-    hp = -(-h0 // th) * th
-    return grads_resident, th, tw, hp, wp
-
-
 def dense_lk_level(
     prev: jnp.ndarray,
     next_: jnp.ndarray,
@@ -183,103 +114,22 @@ def dense_lk_level(
     cfg: LKConfig = LKConfig(),
     dense_cfg: DenseLKConfig = DenseLKConfig(),
     max_disp: int | None = None,
-    coarse_planes_init: jnp.ndarray | None = None,
-    planes_out: bool = False,
 ) -> DenseFlowResult:
-    """One pyramid level of window-coherent dense LK refinement.
-
-    coarse_planes_init / planes_out are the fused pyramid chain's internal
-    interface (dense_pyramidal_lk): when coarse_planes_init is given
-    (shape (2, H//2, W//2) — the coarser level's flow planes), flow_init is
-    ignored and the Pallas grads kernel upsamples in-VMEM; with planes_out
-    the returned .flow is (2, H, W) planes instead of (H, W, 2).  Both
-    require the grads-in-kernel fused path at a pad-free geometry (the
-    caller gates)."""
+    """One pyramid level of window-coherent dense LK refinement."""
     win = cfg.win_size
     win_w, win_h = win
     area = jnp.float32(win_w * win_h)
     prev = prev.astype(jnp.float32)
     next_ = next_.astype(jnp.float32)
     r_disp = dense_cfg.max_disp if max_disp is None else max_disp
-
-    # The Pallas warp needs H % 16 == 0 and W % tile_w == 0; pick tile_w to
-    # minimize padding (pad-dominated tiles skew the per-tile reference
-    # displacement) and edge-pad the remainder, cropping at the end.
-    orig_hw = prev.shape[-2:]
-    use_pallas = dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused
-    if use_pallas:
-        h0, w0 = orig_hw
-        grads_resident, th, tw, hp, wp = pallas_level_geometry(
-            h0, w0, dense_cfg)
-        if (hp, wp) != (h0, w0):
-            assert coarse_planes_init is None, (
-                "coarse-chain levels must be pad-free")
-            pad_cfg = ((0, hp - h0), (0, wp - w0))
-            prev = jnp.pad(prev, pad_cfg, mode="edge")
-            next_ = jnp.pad(next_, pad_cfg, mode="edge")
-            flow_init = jnp.pad(
-                flow_init, (pad_cfg[0], pad_cfg[1], (0, 0)), mode="edge"
-            )
-    else:
-        tw = None
-        assert coarse_planes_init is None and not planes_out
-
-    h, w = prev.shape[-2:]
     eps2 = jnp.float32(cfg.eps * cfg.eps)
     bound = jnp.float32(r_disp)
 
-    if dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel:
-        # Self-contained kernel: Scharr + A computed per tile in VMEM, no
-        # XLA prologue beyond padding (see make_fused_lk_level_grads); when
-        # the whole level fits one tile, the VMEM-resident variant keeps
-        # all level state in scratch across iterations.
-        from lk_tpu.flow.pallas_kernels import (
-            make_fused_lk_level_grads,
-            make_fused_lk_level_grads_resident,
-        )
-
-        assert win_w == win_h, "fused grads kernel needs a square window"
-        if grads_resident:
-            assert coarse_planes_init is None
-            run = make_fused_lk_level_grads_resident(
-                next_, prev, n_iters=dense_cfg.outer_iters,
-                min_eig_threshold=cfg.min_eig_threshold,
-                max_disp=r_disp, win_k=win_h, local=dense_cfg.warp_local,
-                planes_out=planes_out, scharr_mxu=dense_cfg.scharr_mxu,
-            )
-        else:
-            run = make_fused_lk_level_grads(
-                next_, prev, n_iters=dense_cfg.outer_iters,
-                min_eig_threshold=cfg.min_eig_threshold,
-                max_disp=r_disp, tile_h=th, tile_w=tw, win_k=win_h,
-                local=dense_cfg.warp_local,
-                coarse_flow=coarse_planes_init is not None,
-                planes_out=planes_out, scharr_mxu=dense_cfg.scharr_mxu,
-            )
-        if coarse_planes_init is not None:
-            flow, min_eig, valid = run(
-                coarse_planes_init.astype(jnp.float32))
-        else:
-            flow, min_eig, valid = run(flow_init.astype(jnp.float32))
-        h0, w0 = orig_hw
-        fhw = flow.shape[1:] if planes_out else flow.shape[:2]
-        if fhw != (h0, w0):
-            flow = (flow[:, :h0, :w0] if planes_out else flow[:h0, :w0])
-            min_eig = min_eig[:h0, :w0]
-            valid = valid[:h0, :w0]
-        return DenseFlowResult(flow=flow, min_eig=min_eig, valid=valid)
-
-    assert coarse_planes_init is None and not planes_out, (
-        "plane-layout I/O requires the grads-in-kernel fused path")
     ix, iy = scharr_derivatives(prev)
     sum_dtype = jnp.bfloat16 if dense_cfg.bf16_box_sums else jnp.float32
-    # The fused kernel's b sums see edge-replicated halos at frame borders;
-    # A must use the same border policy or border solves are inconsistent
-    # (measured: up to 5.7 px border garbage diffusing ~16 px inward/iter).
-    a_border = "edge" if dense_cfg.use_pallas_fused else "zero"
-    a11 = box_sum(ix * ix, win, border=a_border, sum_dtype=sum_dtype)
-    a12 = box_sum(ix * iy, win, border=a_border, sum_dtype=sum_dtype)
-    a22 = box_sum(iy * iy, win, border=a_border, sum_dtype=sum_dtype)
+    a11 = box_sum(ix * ix, win, sum_dtype=sum_dtype)
+    a12 = box_sum(ix * iy, win, sum_dtype=sum_dtype)
+    a22 = box_sum(iy * iy, win, sum_dtype=sum_dtype)
     det = a11 * a22 - a12 * a12
     min_eig = (a22 + a11 - jnp.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) / (
         2.0 * area
@@ -287,36 +137,9 @@ def dense_lk_level(
     valid = (min_eig >= cfg.min_eig_threshold * _MIN_EIG_SCALE) & (det > 1e-7)
     inv_det = jnp.where(valid, 1.0 / det, 0.0)
 
-    if dense_cfg.use_pallas_fused:
-        from lk_tpu.flow.pallas_kernels import make_fused_lk_level
-
-        run = make_fused_lk_level(
-            next_, prev, ix, iy, a11, a12, a22, inv_det,
-            n_iters=dense_cfg.outer_iters,
-            max_disp=r_disp, tile_h=th, tile_w=tw, win_k=win_h,
-            local=dense_cfg.warp_local,
-        )
-        flow = run(flow_init.astype(jnp.float32))
-        h0, w0 = orig_hw
-        if flow.shape[:2] != (h0, w0):
-            flow = flow[:h0, :w0]
-            min_eig = min_eig[:h0, :w0]
-            valid = valid[:h0, :w0]
-        return DenseFlowResult(flow=flow, min_eig=min_eig, valid=valid)
-
     def body(_, carry):
         flow, active = carry
-        if dense_cfg.use_pallas_warp:
-            from lk_tpu.flow.pallas_kernels import pallas_local_warp
-
-            jw = pallas_local_warp(
-                next_, flow, max_disp=r_disp, tile_h=th, tile_w=tw,
-                local=dense_cfg.warp_local,
-                window_dtype=(jnp.bfloat16 if dense_cfg.bf16_warp_window
-                              else jnp.float32),
-            )
-        else:
-            jw = shift_select_warp(next_, flow, (r_disp, r_disp))
+        jw = _bounded_warp(next_, flow, r_disp)
         # Inverse-compositional form: the warped gradient in the coherence
         # correction is replaced by the *template* gradient gI (the same
         # substitution OpenCV's per-point solver makes) — then the correction
@@ -347,11 +170,6 @@ def dense_lk_level(
         body,
         (flow_init.astype(jnp.float32), active0),
     )
-    h0, w0 = orig_hw
-    if flow.shape[:2] != (h0, w0):
-        flow = flow[:h0, :w0]
-        min_eig = min_eig[:h0, :w0]
-        valid = valid[:h0, :w0]
     return DenseFlowResult(flow=flow, min_eig=min_eig, valid=valid)
 
 
@@ -363,11 +181,10 @@ def dense_pyramidal_lk_batched(
 ) -> jnp.ndarray:
     """Batched dense flow via row-folding: (B, H, W) pairs -> (B, H, W, 2).
 
-    Batched 3-D stencils lower pathologically on the TPU backend (measured:
-    a (2,1080,1920) box_sum runs ~24x slower per frame than (1080,1920)), so
-    the batch is folded into the row axis with per-frame edge-replicated
+    The batch is folded into the row axis with per-frame edge-replicated
     guard bands large enough that no level's stencil (warp displacement +
-    window + gradient) crosses a frame seam; every op stays 2-D.
+    window + gradient) crosses a frame seam, so every op stays 2-D and one
+    program serves any batch size.
 
     Border semantics inside the guard are edge-replication (the same rule
     the warp uses); box sums near frame borders see replicated rows instead
@@ -403,6 +220,20 @@ def _upsample_flow(flow: jnp.ndarray, dst_h: int, dst_w: int) -> jnp.ndarray:
     return jnp.moveaxis(up, 0, -1) * 2.0
 
 
+def build_frame_levels(
+    frame: jnp.ndarray,
+    cfg: LKConfig = LKConfig(),
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+) -> tuple:
+    """Pyramid levels of ONE frame, level 0 first (the video-mode scan
+    carry; dense_pyramidal_lk builds both frames of a pair the same way)."""
+    cfg = _effective_cfg(cfg, dense_cfg, frame.shape[-2:])
+    levels = [frame.astype(jnp.float32)]
+    for _ in range(cfg.max_level):
+        levels.append(pyr_down(levels[-1], fast=dense_cfg.fast_pyramid))
+    return tuple(levels)
+
+
 def dense_pyramidal_lk(
     prev: jnp.ndarray,
     next_: jnp.ndarray,
@@ -414,405 +245,10 @@ def dense_pyramidal_lk(
 
     prev/next: (H, W) float32 grayscale in 0..255.  Returns level-0 flow.
     """
-    cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
-    # NOTE: keep the two pyr_down calls per level separate — stacking the
-    # pair into one (2, H, W) call measures 585 vs 770 fps end-to-end
-    # (batched 3-D stencils lower pathologically on this backend).
-    fast = dense_cfg.fast_pyramid
-    h_true, w_true = prev.shape[-2:]
-    prev = prev.astype(jnp.float32)
-    next_ = next_.astype(jnp.float32)
-    hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
-    if (hp, wp) != (h_true, w_true):
-        pad = ((0, hp - h_true), (0, wp - w_true))
-        prev = jnp.pad(prev, pad, mode="edge")
-        next_ = jnp.pad(next_, pad, mode="edge")
-    prev_levels = [prev]
-    next_levels = [next_]
-    for _ in range(cfg.max_level):
-        ph, pw = prev_levels[-1].shape
-        if dense_cfg.pallas_pyramid:
-            from lk_tpu.flow.pallas_kernels import (
-                pallas_pyr_down_pair, pyr_pair_supported)
-            if pyr_pair_supported(ph, pw):
-                pa, pb = pallas_pyr_down_pair(
-                    prev_levels[-1], next_levels[-1])
-                prev_levels.append(pa)
-                next_levels.append(pb)
-                continue
-        prev_levels.append(pyr_down(prev_levels[-1], fast=fast))
-        next_levels.append(pyr_down(next_levels[-1], fast=fast))
     return dense_flow_from_levels(
-        prev_levels, next_levels, cfg, dense_cfg, (h_true, w_true),
-        init_flow=init_flow,
-    )
-
-
-def pyramid_base_geometry(
-    h_true: int, w_true: int, cfg: LKConfig, dense_cfg: DenseLKConfig
-) -> tuple[int, int]:
-    """Padded pyramid-base geometry under ``pallas_pyramid``.
-
-    Pre-padding the base ONCE to the level-0 Pallas kernel geometry
-    (1080x1920 -> 1088x2048 in production) with the same edge mode the
-    levels pad with has two effects: (a) the pair kernel's h % 16 == 0
-    DMA-alignment requirement holds, and (b) the halved geometry at every
-    level is exactly what pallas_level_geometry would pad to
-    (1088x2048 -> 544x1024 -> 272x512), so the per-level frame AND flow
-    pads — full-array copies, ~35 MB of HBM traffic at 1080p level 0 —
-    become no-ops.
-
-    The pre-pad is taken ONLY when the pad-free video plan actually
-    materializes at the padded base.  A fat speculative pad is an accuracy
-    hazard, not just waste: at 720p the candidate base is 768x1280 (48
-    replicated rows), and decimating the pad region deviates from cv2's
-    reflect-101 pyramid borders badly enough that the top-level search
-    near the bottom edge leaves the oracle's basin on weak texture
-    (measured: a -9 px flow cluster on the zero-texture car hood of the
-    natural gate scene, mean EPE 0.114 vs 0.076 without the pre-pad —
-    scripts/exp_720p_natural.py).  1080p's 8-row pad keeps the plan and
-    is unaffected.
-    """
-    cfg = _effective_cfg(cfg, dense_cfg, (h_true, w_true))
-    if not (dense_cfg.pallas_pyramid and cfg.max_level > 0):
-        return h_true, w_true
-    n0 = dense_cfg.level_iters(0)
-    fuse0 = dense_cfg.use_pallas_fused or (
-        dense_cfg.use_pallas_warp
-        and (dense_cfg.fused_grads_in_kernel
-             or n0 >= dense_cfg.fused_from_iters))
-    if fuse0 or dense_cfg.use_pallas_warp:
-        l0_cfg = dataclasses.replace(
-            dense_cfg, outer_iters=n0, use_pallas_fused=fuse0,
-            warp_local=dense_cfg.level_local(0),
-            fused_resident_max_h=0)   # level 0 is never the top here
-        _, _, _, hp, wp = pallas_level_geometry(h_true, w_true, l0_cfg)
-    else:
-        hp, wp = h_true, w_true
-    hp = -(-hp // 16) * 16   # pair-kernel DMA alignment floor
-    if (hp, wp) != (h_true, w_true) and _video_level_plan(
-            cfg, dense_cfg, (hp, wp), true_hw=(h_true, w_true)) is None:
-        return h_true, w_true
-    return hp, wp
-
-
-def build_frame_levels(
-    frame: jnp.ndarray,
-    cfg: LKConfig = LKConfig(),
-    dense_cfg: DenseLKConfig = DenseLKConfig(),
-) -> tuple:
-    """Padded pyramid levels of ONE frame (the video-mode scan carry).
-
-    Identical base pre-pad and level geometry to dense_pyramidal_lk's pair
-    path, but decimates with the XLA fast pyr_down: the single-plane
-    Pallas form (pallas_pyr_down_one) was measured ~1% SLOWER end-to-end
-    here (1475 vs 1490 fps @1080p, scripts/exp_pyr_one.py) — one frame
-    per video step is too little work to amortize the kernel's fixed
-    per-step DMA cost, unlike the pair path where two planes share a grid.
-    """
-    cfg = _effective_cfg(cfg, dense_cfg, frame.shape[-2:])
-    h_true, w_true = frame.shape[-2:]
-    f = frame.astype(jnp.float32)
-    hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
-    if (hp, wp) != (h_true, w_true):
-        f = jnp.pad(f, ((0, hp - h_true), (0, wp - w_true)), mode="edge")
-    levels = [f]
-    for _ in range(cfg.max_level):
-        levels.append(pyr_down(levels[-1], fast=dense_cfg.fast_pyramid))
-    return tuple(levels)
-
-
-class _LevelPlan(NamedTuple):
-    """Static per-level geometry of the prepadded video chain."""
-    h: int
-    w: int
-    th: int
-    tw: int
-    resident: bool
-    iters: int
-    local: int
-    disp: int
-    pads: tuple  # (top, bottom, left, right) of unified_pad_geometry
-
-
-def _video_level_plan(
-    cfg: LKConfig, dense_cfg: DenseLKConfig, base_hw: tuple[int, int],
-    true_hw: tuple[int, int] | None = None,
-) -> Optional[tuple]:
-    """Per-level static geometry for the prepadded video-mode chain, or
-    ``None`` when the geometry/config cannot run it (the caller falls back
-    to the per-call-padding path).
-
-    Requirements mirror the production 1080p pyramid: every level pad-free
-    at its Pallas geometry on the grads kernels, the top level VMEM-resident,
-    and every finer level a single-iteration coarse-chain consumer with
-    tiles aligned for the tight out writes.
-
-    true_hw (when the caller knows it): the UNPADDED frame size, used for
-    the window-size depth clamp so the plan depth always agrees with the
-    builders/solvers (which clamp by true dims).  Clamping by a padded
-    base can disagree near the threshold — e.g. 119 true rows clamp to 3
-    levels while the 128-row base allows 4, and the solvers would then
-    silently treat a mid-plan level as the top (r5 review finding)."""
-    cfg = _effective_cfg(cfg, dense_cfg, true_hw or base_hw)
-    from lk_tpu.flow.pallas_kernels import unified_pad_geometry
-
-    if not (dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused):
-        return None
-    if not dense_cfg.fused_grads_in_kernel or not dense_cfg.fused_coarse_chain:
-        return None
-    top = cfg.max_level
-    if cfg.win_size[0] != cfg.win_size[1]:
-        return None
-    hs, ws = [base_hw[0]], [base_hw[1]]
-    for _ in range(top):
-        if hs[-1] % 2 or ws[-1] % 2:
-            return None          # coarse chain needs exact halving
-        hs.append(hs[-1] // 2)
-        ws.append(ws[-1] // 2)
-    plan = []
-    for level in range(top + 1):
-        n_it = dense_cfg.level_iters(level)
-        local = dense_cfg.level_local(level)
-        disp = dense_cfg.level_disp(level)
-        lcfg = dataclasses.replace(
-            dense_cfg, outer_iters=n_it, use_pallas_fused=True,
-            warp_local=local,
-            # residency is a TOP-level affordance: a non-top level that
-            # fits the resident gate (e.g. 272x512 level 2 of the 4-level
-            # production pyramid) must still run the multi-tile grads
-            # kernel so the coarse chain / tight-out layout holds
-            fused_resident_max_h=(dense_cfg.fused_resident_max_h
-                                  if level == top else 0))
-        g_res, th, tw, hp, wp = pallas_level_geometry(hs[level], ws[level],
-                                                      lcfg)
-        if (hp, wp) != (hs[level], ws[level]):
-            return None
-        if level == top:
-            if not g_res:
-                return None      # multi-tile ping-pong top: fall back
-            th, tw = hs[level], ws[level]
-        else:
-            if g_res or n_it != 1 or th % 16 or tw % 256:
-                return None
-        pads = unified_pad_geometry(th, tw, disp, local)
-        plan.append(_LevelPlan(hs[level], ws[level], th, tw,
-                               level == top, n_it, local, disp, pads))
-    return tuple(plan)
-
-
-def build_frame_levels_prepadded(
-    frame: jnp.ndarray,
-    cfg: LKConfig,
-    dense_cfg: DenseLKConfig,
-    plan: tuple,
-) -> tuple:
-    """Pyramid levels of ONE frame, each edge-padded ONCE into the unified
-    kernel layout (the video-mode scan carry of the prepadded chain).
-
-    The decimation chain is exactly build_frame_levels (identical values);
-    only the per-level pad into unified_pad_geometry is added here — and in
-    exchange the level kernels pad NOTHING per call, where the per-call
-    path re-pads every frame twice per level (as next in one scan step, as
-    prev in the following one).
-
-    With ``dense_cfg.padded_build`` the same layouts are produced with NO
-    intermediate materializations: one combined edge pad (base + unified
-    fused — edge-of-edge replication is a single edge pad) and offset
-    band-matmul decimation straight between padded layouts
-    (ops/blur.pyr_down_padded); values match to f32 rounding, see
-    config.py."""
-    if dense_cfg.padded_build:
-        return _build_levels_padded(frame[None], cfg, dense_cfg,
-                                    plan, batched=False)
-    levels = build_frame_levels(frame, cfg, dense_cfg)
-    assert len(levels) == len(plan)
-    out = []
-    for f, p in zip(levels, plan):
-        assert f.shape == (p.h, p.w), (f.shape, p)
-        pt, pb, pl_, pr = p.pads
-        out.append(jnp.pad(f, ((pt, pb), (pl_, pr)), mode="edge"))
-    return tuple(out)
-
-
-def _build_levels_padded(
-    frames: jnp.ndarray,
-    cfg: LKConfig,
-    dense_cfg: DenseLKConfig,
-    plan: tuple,
-    batched: bool,
-) -> tuple:
-    """Unified-padded pyramid levels with zero intermediate
-    materializations (the padded_build path; frames: (N, H, W)).
-
-    Decimation runs per plane (not one batched 3-D matmul) so the chunk
-    build stays bit-identical to the per-frame build — the same rule the
-    two-step chunk path follows."""
-    from lk_tpu.ops.blur import pyr_down_padded
-
-    assert dense_cfg.fast_pyramid, (
-        "padded_build implements the fast (banded-matmul) decimation; "
-        "set fast_pyramid=True or padded_build=False")
-    h_true, w_true = frames.shape[-2:]
-    cfg = _effective_cfg(cfg, dense_cfg, (h_true, w_true))
-    assert len(plan) == cfg.max_level + 1, (len(plan), cfg.max_level)
-    p0 = plan[0]
-    pt, pb, pl_, pr = p0.pads
-    f = frames.astype(jnp.float32)
-    # combined base + unified pad: both are edge mode, so one pad with
-    # the summed amounts reproduces pad(pad(x, base), unified) exactly
-    f = jnp.pad(f, ((0, 0), (pt, pb + (p0.h - h_true)),
-                    (pl_, pr + (p0.w - w_true))), mode="edge")
-    stacks = [f]
-    for lv in range(len(plan) - 1):
-        pa, pnx = plan[lv], plan[lv + 1]
-        out_pad = (pnx.pads[0] + pnx.h + pnx.pads[1],
-                   pnx.pads[2] + pnx.w + pnx.pads[3])
-        cur = stacks[-1]
-        stacks.append(jnp.stack([
-            pyr_down_padded(cur[i], (pa.h, pa.w),
-                            (pa.pads[0], pa.pads[2]), out_pad,
-                            (pnx.pads[0], pnx.pads[2]))
-            for i in range(cur.shape[0])
-        ]))
-    if batched:
-        return tuple(stacks)
-    return tuple(s[0] for s in stacks)
-
-
-def dense_flow_from_levels_prepadded(
-    prev_levels: tuple,
-    next_levels: tuple,
-    cfg: LKConfig,
-    dense_cfg: DenseLKConfig,
-    true_hw: tuple[int, int],
-    plan: tuple,
-    init_flow: Optional[jnp.ndarray] = None,
-    return_top_flow: bool = False,
-):
-    """Coarse-to-fine refinement over unified-prepadded pyramid levels.
-
-    The zero-XLA-glue production chain: the top level runs VMEM-resident,
-    every finer level consumes the coarser flow as half-res planes
-    (in-kernel MXU upsample) and writes a TIGHT output buffer; only level 0
-    writes the (min_eig, valid) stats planes.  Numerically identical to
-    dense_flow_from_levels on the same levels (same kernels, same values —
-    the unified pad regions replicate the same frame edges)."""
-    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
-    from lk_tpu.flow.pallas_kernels import (
-        make_fused_lk_level_grads,
-        make_fused_lk_level_grads_resident,
-    )
-
-    h_true, w_true = true_hw
-    top = cfg.max_level
-    p = plan[top]
-    run_top = make_fused_lk_level_grads_resident(
-        next_levels[top], prev_levels[top], n_iters=p.iters,
-        min_eig_threshold=cfg.min_eig_threshold, max_disp=p.disp,
-        win_k=cfg.win_size[1], local=p.local, planes_out=True,
-        prepadded_hw=(p.h, p.w), scharr_mxu=dense_cfg.scharr_mxu,
-    )
-    if init_flow is None:
-        seed = jnp.zeros((p.h, p.w, 2), jnp.float32)
-    else:
-        seed = init_flow.astype(jnp.float32)
-        assert seed.shape == (p.h, p.w, 2), seed.shape
-    flow, min_eig, valid = run_top(seed)       # planes (2, h, w)
-    top_flow = jnp.moveaxis(flow, 0, -1) if return_top_flow else None
-    for level in range(top - 1, -1, -1):
-        p = plan[level]
-        run = make_fused_lk_level_grads(
-            next_levels[level], prev_levels[level], n_iters=1,
-            min_eig_threshold=cfg.min_eig_threshold, max_disp=p.disp,
-            tile_h=p.th, tile_w=p.tw, win_k=cfg.win_size[1], local=p.local,
-            coarse_flow=True, planes_out=True, prepadded=True,
-            write_stats=(level == 0), scharr_mxu=dense_cfg.scharr_mxu,
-        )
-        flow, me, va = run(flow)
-        if level == 0:
-            min_eig, valid = me, va
-    result = DenseFlowResult(
-        flow=jnp.moveaxis(flow[:, :h_true, :w_true], 0, -1),
-        min_eig=min_eig[:h_true, :w_true],
-        valid=valid[:h_true, :w_true],
-    )
-    if return_top_flow:
-        return result, top_flow
-    return result
-
-
-def dense_flow_chunk_prepadded(
-    frames_chunk: jnp.ndarray,
-    cfg: LKConfig,
-    dense_cfg: DenseLKConfig,
-    true_hw: tuple[int, int],
-    plan: tuple,
-) -> DenseFlowResult:
-    """Dense flow over a chunk of K+1 frames (K cold pairs) with the frame
-    index as a Pallas grid dimension at every pyramid level.
-
-    frames_chunk: (K+1, H, W).  Returns stacked (K, ...) DenseFlowResult.
-    Per-pair numerics are bit-identical to the per-frame prepadded chain:
-    the batched kernels run the same per-tile computation in the same
-    order, and the decimation below unrolls the SAME 2-D pyr_down call per
-    plane (a (K+1, H, W) batched matmul is not guaranteed bit-equal)."""
-    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
-    from lk_tpu.flow.pallas_kernels import (
-        make_fused_lk_level_grads_batched,
-        make_fused_lk_level_grads_resident_batched,
-    )
-
-    h_true, w_true = true_hw
-    top = cfg.max_level
-    assert len(plan) == top + 1, (len(plan), top)
-    kp1 = frames_chunk.shape[0]
-    if dense_cfg.padded_build:
-        padded = _build_levels_padded(frames_chunk, cfg, dense_cfg, plan,
-                                      batched=True)
-    else:
-        f = frames_chunk.astype(jnp.float32)
-        hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
-        if (hp, wp) != (h_true, w_true):
-            f = jnp.pad(f, ((0, 0), (0, hp - h_true), (0, wp - w_true)),
-                        mode="edge")
-        level_stacks = [f]
-        for _ in range(top):
-            prev_stack = level_stacks[-1]
-            level_stacks.append(jnp.stack([
-                pyr_down(prev_stack[i], fast=dense_cfg.fast_pyramid)
-                for i in range(kp1)
-            ]))
-        padded = []
-        for stack, p in zip(level_stacks, plan):
-            assert stack.shape[1:] == (p.h, p.w), (stack.shape, p)
-            pt, pb, pl_, pr = p.pads
-            padded.append(jnp.pad(stack, ((0, 0), (pt, pb), (pl_, pr)),
-                                  mode="edge"))
-
-    p = plan[top]
-    run_top = make_fused_lk_level_grads_resident_batched(
-        padded[top], (p.h, p.w), n_iters=p.iters,
-        min_eig_threshold=cfg.min_eig_threshold, max_disp=p.disp,
-        local=p.local, win_k=cfg.win_size[1],
-        scharr_mxu=dense_cfg.scharr_mxu,
-    )
-    flow, min_eig, valid = run_top(None)        # (K, 2, h, w) planes
-    for level in range(top - 1, -1, -1):
-        p = plan[level]
-        run = make_fused_lk_level_grads_batched(
-            padded[level], (p.h, p.w),
-            min_eig_threshold=cfg.min_eig_threshold, max_disp=p.disp,
-            tile_h=p.th, tile_w=p.tw, local=p.local, win_k=cfg.win_size[1],
-            write_stats=(level == 0), scharr_mxu=dense_cfg.scharr_mxu,
-        )
-        flow, me, va = run(flow)
-        if level == 0:
-            min_eig, valid = me, va
-    return DenseFlowResult(
-        flow=jnp.moveaxis(flow[:, :, :h_true, :w_true], 1, -1),
-        min_eig=min_eig[:, :h_true, :w_true],
-        valid=valid[:, :h_true, :w_true],
+        build_frame_levels(prev, cfg, dense_cfg),
+        build_frame_levels(next_, cfg, dense_cfg),
+        cfg, dense_cfg, init_flow=init_flow,
     )
 
 
@@ -824,109 +260,28 @@ def dense_pyramidal_lk_video(
     """Dense pyramidal LK over a video: (T, H, W) -> flows (T-1, H, W, 2).
 
     The production streaming form: a ``lax.scan`` carries each frame's
-    pyramid to the next step, so every frame is padded and decimated ONCE —
-    the per-pair API rebuilds both pyramids per call, recomputing each
-    interior frame's pyramid twice.  With ``video_warm_start`` (default)
+    pyramid to the next step, so every frame is decimated ONCE — the
+    per-pair API rebuilds both pyramids per call, recomputing each
+    interior frame's pyramid twice.  With the opt-in ``video_warm_start``
     the scan additionally carries the converged TOP-level flow as the next
     step's top-level seed and runs ``warm_top_iters`` there instead of the
     cold schedule's top count (OpenCV's OPTFLOW_USE_INITIAL_FLOW prior);
-    the first pair runs the full cold schedule.  Without warm start,
-    per-pair numerics are preserved exactly (zero flow init per pair; only
-    the redundant pyramid recomputation is gone).
+    the first pair runs the full cold schedule.  Without warm start (the
+    default), per-pair numerics are preserved exactly (zero flow init per
+    pair; only the redundant pyramid recomputation is gone).
     """
     assert frames.ndim == 3, frames.shape
-    h_true, w_true = frames.shape[-2:]
-    cfg = _effective_cfg(cfg, dense_cfg, (h_true, w_true))
-    t_total = frames.shape[0]
-
-    # Prepadded chain: frames carried as unified-padded pyramid levels, the
-    # per-level kernels pad/slice NOTHING (measured at 1080p: the per-call
-    # jnp.pads of next+prev alone were ~46 MB of HBM copies per L0 call).
-    # Identical numerics; geometry/config gated by _video_level_plan.
-    plan = _video_level_plan(
-        cfg, dense_cfg,
-        pyramid_base_geometry(h_true, w_true, cfg, dense_cfg),
-        true_hw=(h_true, w_true))
-    chunk = dense_cfg.video_chunk
-    if (plan is not None and chunk > 1 and t_total - 1 >= chunk
-            and not dense_cfg.video_warm_start):
-        n_chunks = (t_total - 1) // chunk
-
-        def cstep(_, c):
-            fr = jax.lax.dynamic_slice_in_dim(frames, c * chunk, chunk + 1)
-            return None, dense_flow_chunk_prepadded(
-                fr, cfg, dense_cfg, (h_true, w_true), plan)
-
-        _, out = jax.lax.scan(cstep, None, jnp.arange(n_chunks))
-        out = jax.tree_util.tree_map(
-            lambda a: a.reshape((-1,) + a.shape[2:]), out)
-        rem = (t_total - 1) - n_chunks * chunk
-        if rem == 0:
-            return out
-        tail_cfg = dataclasses.replace(dense_cfg, video_chunk=0)
-        tail = dense_pyramidal_lk_video(
-            frames[n_chunks * chunk:], cfg, tail_cfg)
-        return jax.tree_util.tree_map(
-            lambda a, b: jnp.concatenate([a, b], axis=0), out, tail)
-    if plan is not None and (not dense_cfg.video_warm_start or t_total <= 2):
-        pads0 = build_frame_levels_prepadded(frames[0], cfg, dense_cfg, plan)
-
-        def pstep(carry, frame):
-            nxt = build_frame_levels_prepadded(frame, cfg, dense_cfg, plan)
-            res = dense_flow_from_levels_prepadded(
-                carry, nxt, cfg, dense_cfg, (h_true, w_true), plan)
-            return nxt, res
-
-        _, out = jax.lax.scan(pstep, pads0, frames[1:].astype(jnp.float32))
-        return out
-    if plan is not None:
-        # warm start on the prepadded chain: cold first pair, then the
-        # warm top-iteration schedule with the carried top-level seed
-        warm_d = dataclasses.replace(
-            dense_cfg,
-            iter_schedule=tuple(dense_cfg.level_iters(lv)
-                                for lv in range(cfg.max_level))
-            + (dense_cfg.warm_top_iters,))
-        warm_plan = _video_level_plan(
-            cfg, warm_d, pyramid_base_geometry(h_true, w_true, cfg, warm_d),
-            true_hw=(h_true, w_true))
-        if warm_plan is not None:
-            pads0 = build_frame_levels_prepadded(frames[0], cfg, dense_cfg,
-                                                 plan)
-            pads1 = build_frame_levels_prepadded(frames[1], cfg, dense_cfg,
-                                                 plan)
-            res0, top0 = dense_flow_from_levels_prepadded(
-                pads0, pads1, cfg, dense_cfg, (h_true, w_true), plan,
-                return_top_flow=True)
-
-            def wstep(carry, frame):
-                levels, seed = carry
-                nxt = build_frame_levels_prepadded(frame, cfg, warm_d,
-                                                   warm_plan)
-                res, topf = dense_flow_from_levels_prepadded(
-                    levels, nxt, cfg, warm_d, (h_true, w_true), warm_plan,
-                    init_flow=seed, return_top_flow=True)
-                return (nxt, topf), res
-
-            _, out = jax.lax.scan(
-                wstep, (pads1, top0), frames[2:].astype(jnp.float32))
-            return jax.tree_util.tree_map(
-                lambda a, b: jnp.concatenate([a[None], b], axis=0),
-                res0, out)
-
     levels0 = build_frame_levels(frames[0], cfg, dense_cfg)
 
-    if not dense_cfg.video_warm_start or t_total <= 2:
+    if not dense_cfg.video_warm_start or frames.shape[0] <= 2:
         def step(carry, frame):
             nxt = build_frame_levels(frame, cfg, dense_cfg)
-            res = dense_flow_from_levels(
-                carry, nxt, cfg, dense_cfg, (h_true, w_true))
-            return nxt, res
+            return nxt, dense_flow_from_levels(carry, nxt, cfg, dense_cfg)
 
         _, out = jax.lax.scan(step, levels0, frames[1:].astype(jnp.float32))
         return out
 
-    top = cfg.max_level
+    top = len(levels0) - 1
     warm_sched = tuple(dense_cfg.level_iters(lv) for lv in range(top)) + (
         dense_cfg.warm_top_iters,)
     warm_cfg = dataclasses.replace(dense_cfg, iter_schedule=warm_sched)
@@ -934,15 +289,13 @@ def dense_pyramidal_lk_video(
     # first pair: cold full schedule, seeding the warm chain
     levels1 = build_frame_levels(frames[1], cfg, dense_cfg)
     res0, top0 = dense_flow_from_levels(
-        levels0, levels1, cfg, dense_cfg, (h_true, w_true),
-        return_top_flow=True)
+        levels0, levels1, cfg, dense_cfg, return_top_flow=True)
 
     def step(carry, frame):
         levels, seed = carry
         nxt = build_frame_levels(frame, cfg, warm_cfg)
         res, topf = dense_flow_from_levels(
-            levels, nxt, cfg, warm_cfg, (h_true, w_true),
-            init_flow=seed, return_top_flow=True)
+            levels, nxt, cfg, warm_cfg, init_flow=seed, return_top_flow=True)
         return (nxt, topf), res
 
     _, out = jax.lax.scan(
@@ -959,17 +312,12 @@ def dense_pyramidal_lk_multistream(
     """Dense video flow over N independent streams: (N, T, H, W) ->
     flows (N, T-1, H, W, 2).
 
-    One TPU core interleaves streams in time (kernels serialize), so this
-    is a ``lax.map`` of the video chain: the per-stream program compiles
-    ONCE and every stream's carry (frame pyramid, warm-start seed) stays
-    resident in HBM for the whole run — the execution model behind the
-    "N x 30fps dense streams/chip" serving claim, measured (not fps/30
-    arithmetic) in scripts/exp_multistream_dense.py.  Streams are fully
-    independent; there is no cross-stream batching to exploit because the
-    chunked video kernels already amortize launch overhead within a
-    stream (DenseLKConfig.video_chunk).  For multi-CHIP stream
-    parallelism shard the N axis over a mesh data axis (see
-    __graft_entry__.dryrun_multichip's dense stream-DP leg).
+    A ``lax.map`` of the video chain: the per-stream program compiles ONCE
+    and every stream's carry (frame pyramid, warm-start seed) stays
+    resident in device memory for the whole run.  Streams are fully
+    independent.  For multi-device stream parallelism shard the N axis
+    over a mesh axis (__graft_entry__.dryrun_multichip's dense stream-DP
+    leg; chip_smoke.py --four-cards).
     """
     assert frames.ndim == 4, frames.shape
     return jax.lax.map(
@@ -981,21 +329,20 @@ def dense_flow_from_levels(
     next_levels,
     cfg: LKConfig,
     dense_cfg: DenseLKConfig,
-    true_hw: tuple[int, int],
     init_flow: Optional[jnp.ndarray] = None,
     return_top_flow: bool = False,
 ) -> DenseFlowResult:
     """Coarse-to-fine refinement over prebuilt pyramid levels.
 
     prev_levels/next_levels: per-level (h, w) frames, level 0 first (as
-    built by dense_pyramidal_lk's pair path or build_frame_levels);
-    true_hw crops the base pad off the outputs.  init_flow seeds the TOP
-    level (the video warm start); return_top_flow additionally returns the
-    converged top-level flow as (h_top, w_top, 2) for the next step's seed.
+    built by build_frame_levels).  init_flow seeds the TOP level (the
+    video warm start); return_top_flow additionally returns the converged
+    top-level flow as (h_top, w_top, 2) for the next step's seed.
     """
-    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
-    h_true, w_true = true_hw
+    cfg = _effective_cfg(cfg, dense_cfg, prev_levels[0].shape[-2:])
     top = cfg.max_level
+    assert len(prev_levels) == len(next_levels) == top + 1, (
+        len(prev_levels), top)
     h_top, w_top = prev_levels[top].shape[-2:]
     if init_flow is None:
         # derive from the level data (not a fresh constant) so the seed
@@ -1004,84 +351,22 @@ def dense_flow_from_levels(
             (prev_levels[top] * 0.0)[..., None], (h_top, w_top, 2))
     else:
         flow = init_flow.astype(jnp.float32)
-        if flow.shape[:2] != (h_top, w_top):  # sized for the unpadded top
-            flow = jnp.pad(
-                flow, ((0, h_top - flow.shape[0]),
-                       (0, w_top - flow.shape[1]), (0, 0)),
-                mode="edge")
-
-    level_cfgs = []
-    for level in range(top + 1):
-        n_it = dense_cfg.level_iters(level)
-        # Levels with enough iterations amortize the precomputed-A fused
-        # kernel's setup; 1-2 iteration levels stay on the lighter warp-only
-        # path — unless the grads-in-kernel variant (no XLA prologue, pays
-        # off from one iteration) is enabled.
-        fuse = dense_cfg.use_pallas_fused or (
-            dense_cfg.use_pallas_warp
-            and (dense_cfg.fused_grads_in_kernel
-                 or n_it >= dense_cfg.fused_from_iters)
-        )
-        level_cfgs.append(dataclasses.replace(
-            dense_cfg, outer_iters=n_it, use_pallas_fused=fuse,
-            warp_local=dense_cfg.level_local(level),
-            # top-only residency (see _video_level_plan)
-            fused_resident_max_h=(dense_cfg.fused_resident_max_h
-                                  if level == top else 0),
-        ))
-
-    def _grads_path(level: int) -> bool:
-        c = level_cfgs[level]
-        return c.use_pallas_fused and c.fused_grads_in_kernel
-
-    # Fused coarse chain: level L consumes level L+1's flow as HALF-res
-    # (2, h/2, w/2) planes upsampled inside the kernel (banded MXU matmuls)
-    # iff both levels run the grads fused path, L is single-iteration,
-    # pad-free at its Pallas geometry, and tile-gated for the provably
-    # aligned coarse-window DMA.  Kills the per-level XLA upsample +
-    # plane split/join + full-res flow pad (~0.25 ms/frame at 1080p).
-    coarse_ok = [False] * (top + 1)
-    for level in range(top if dense_cfg.fused_coarse_chain else 0):
-        c = level_cfgs[level]
-        if not (_grads_path(level) and _grads_path(level + 1)
-                and c.outer_iters == 1):
-            continue
-        h, w = prev_levels[level].shape[-2:]
-        h2, w2 = prev_levels[level + 1].shape[-2:]
-        if (h2, w2) != (h // 2, w // 2):
-            continue
-        g_res, th, tw, hp, wp = pallas_level_geometry(h, w, c)
-        coarse_ok[level] = (not g_res and (hp, wp) == (h, w)
-                            and th % 16 == 0 and tw % 256 == 0)
 
     result = None
     top_flow = None
-    planes = False     # whether `flow` carries (2, h, w) plane layout
     for level in range(top, -1, -1):
-        use_coarse = level != top and coarse_ok[level] and planes
-        if level != top and not use_coarse:
+        if level != top:
             h, w = prev_levels[level].shape[-2:]
-            if planes:
-                flow = jnp.moveaxis(flow, 0, -1)
             flow = _upsample_flow(flow, h, w)
-        want_planes = level > 0 and coarse_ok[level - 1]
         result = dense_lk_level(
-            prev_levels[level], next_levels[level],
-            None if use_coarse else flow, cfg, level_cfgs[level],
+            prev_levels[level], next_levels[level], flow, cfg,
+            dataclasses.replace(dense_cfg,
+                                outer_iters=dense_cfg.level_iters(level)),
             max_disp=dense_cfg.level_disp(level),
-            coarse_planes_init=flow if use_coarse else None,
-            planes_out=want_planes,
         )
         flow = result.flow
-        planes = want_planes
-        if level == top and return_top_flow:
-            top_flow = jnp.moveaxis(flow, 0, -1) if planes else flow
-    if result.flow.shape[:2] != (h_true, w_true):  # crop the base pad
-        result = DenseFlowResult(
-            flow=result.flow[:h_true, :w_true],
-            min_eig=result.min_eig[:h_true, :w_true],
-            valid=result.valid[:h_true, :w_true],
-        )
+        if level == top:
+            top_flow = flow
     if return_top_flow:
         return result, top_flow
     return result

@@ -1,6 +1,6 @@
 """Sparse pyramidal Lucas–Kanade point tracker.
 
-The TPU-native replacement for ``cv.calcOpticalFlowPyrLK``
+The JAX replacement for ``cv.calcOpticalFlowPyrLK``
 (reference LK_Final.py:531-532; parameters at LK_Final.py:94-96), rebuilt as a
 fixed-shape batched tensor program: points live in capacity-N slot arrays with
 a validity mask; each point's refinement is a per-slot ``while_loop`` with
@@ -129,8 +129,8 @@ def _track_one_level(
     # --- iterative refinement ---------------------------------------------
     # while_loop instead of a fixed fori: under vmap the loop runs only
     # until every point in the batch converges (typically 2-4 of the 10
-    # allowed iterations) — same results as the masked fixed-trip version,
-    # measured ~2x faster tracking.
+    # allowed iterations) — same results as the masked fixed-trip version
+    # in fewer trips.
     eps2 = jnp.float32(cfg.eps * cfg.eps)
 
     def cond(carry):
@@ -265,88 +265,12 @@ def track_points(
 
 
 # superwindow geometry for the batched tracker: each point's refinement at a
-# level samples inside ONE prefetched region of `next` instead of issuing a
-# window DMA per iteration (per-point dynamic_slice latency ~2-3.5 us
-# dominates the tracker; one (rows x cols) fetch costs the same as one
-# window fetch).  Rows/cols bound how far the iterate may wander from its
-# per-level initial estimate before sampling clamps (OpenCV wanders < 2 px
-# after pyramid initialization on real motion).
+# level samples inside ONE fetched region of `next` instead of slicing a
+# window per iteration.  Rows/cols bound how far the iterate may wander from
+# its per-level initial estimate before sampling clamps (OpenCV wanders
+# < 2 px after pyramid initialization on real motion).
 _SW_ROWS = 32
 _SW_COLS = 48
-
-
-# Per-frame band gather (2 DMAs per frame) instead of per-point DMAs:
-# measured 4.5 ms -> sub-ms for the three levels' gathers at B=64 x 20 pts
-# (the per-point kernel is descriptor-issue bound; scripts/
-# exp_tracker_split.py).  Module switch so experiments can A/B the kernels.
-_USE_BAND_GATHER = True
-
-
-def _gather_windows_pallas(prev_f, next_f, cy, cx, syf, sxf,
-                           win_h, win_w, sw_h, sw_w, frame_info=None):
-    """Fetch all per-point windows with one Pallas gather (LKConfig
-    .pallas_windows): prev windows at (cy, cx) with Scharr ix/iy computed
-    in-kernel, and (sw_h, sw_w) next superwindows at (syf, sxf) — same
-    contents as the vmapped dynamic_slice path over a full-frame Scharr
-    stack, but the DMAs pipeline instead of serializing and the two
-    full-frame gradient/stack passes disappear (measured 8.8 ms -> sub-ms
-    fixed cost at 640 points).  Both alignment remainders are undone
-    in-kernel, so the windows come back corner-aligned and slicing here is
-    static (the 8 masked row taps per array this replaces cost
-    ~0.65 ms/level at 1280 points)."""
-    from lk_tpu.flow.pallas_kernels import (make_frame_band_gather,
-                                            make_point_window_gather)
-
-    # layout ceilings of the gather kernel's (40, 256) fetches and its
-    # (24/32, 128) corner-aligned outputs
-    assert win_h <= 22 and win_w <= 125, (win_h, win_w)
-    assert sw_w <= 128 and sw_h <= 32, (sw_h, sw_w)
-    band = _USE_BAND_GATHER and frame_info is not None
-    nn = cy.shape[0]
-    fh, fw = next_f.shape
-    # layout contract with the kernel: +8 rows on top (so the aligned-down
-    # minus-8 row start stays in bounds), +40 below (+80 for the band
-    # kernel, whose fixed-height band fetch over the LAST frame reaches
-    # further); +128 cols left (the Scharr stencil reads corner-1 which may
-    # precede a 128 boundary) and enough right for a 256-wide slice at the
-    # last corner.
-    fhp = -(-fh // 8) * 8 + (56 if band else 48)
-    # width = the last possible 256-wide fetch end: corners are clipped to
-    # fw - win_w - 1 (prev) / fw - sw_w (superwindow), so the rightmost
-    # 128-aligned fetch start is floor128(128 + fw - win_w - 2)
-    fwp = (128 + fw - win_w - 2) // 128 * 128 + 256
-    pvp = jnp.pad(prev_f, ((8, fhp - fh - 8), (128, fwp - fw - 128)))
-    nxp = jnp.pad(next_f, ((8, fhp - fh - 8), (128, fwp - fw - 128)))
-
-    cy_p = cy + 8
-    cx_p = cx + 128
-    sy_p = syf + 8
-    sx_p = sxf + 128
-    pr_al = ((cy_p - 1) // 8) * 8
-    pc_al = ((cx_p - 1) // 128) * 128
-    sr_al = (sy_p // 8) * 8
-    sc_al = (sx_p // 128) * 128
-    nn_pad = nn if band else -(-nn // 16) * 16
-
-    def p16(a):
-        return jnp.pad(a, (0, nn_pad - nn))
-
-    starts = jnp.stack([
-        p16(pr_al), p16(pc_al), p16(sr_al), p16(sc_al),
-        p16(cx_p - 1 - pc_al), p16(sx_p - sc_al),
-        p16(cy_p - pr_al), p16(sy_p - sr_al),
-    ]).astype(jnp.int32)
-    if band:
-        n_frames, frame_stride = frame_info
-        gather = make_frame_band_gather(
-            pvp, nxp, n_frames, nn // n_frames, frame_stride)
-    else:
-        gather = make_point_window_gather(pvp, nxp)
-    pw, sww = gather(starts)
-    # corner at row 1 / col 1 of every pw plane; sw corner at row 0 / col 0
-    raw = pw[:nn, :, 1:1 + win_h + 1, 1:win_w + 2]
-    sw = sww[:nn, :sw_h, :sw_w]
-    return raw, sw
 
 
 # Extra level rows kept on each side of a tracker row band beyond the
@@ -379,15 +303,13 @@ def fold_tracking_levels(imgs: jnp.ndarray, cfg: LKConfig = LKConfig(),
     guard row per frame seam) and folded along rows into one tall 2-D
     array.  Exposed so a video pipeline can CARRY the prepped form across
     steps — each frame batch is decimated and folded once, not twice (as
-    next, then again as prev on the following frame; the two preps cost
-    ~1.6 ms of the 11.6 ms tracker call at B=64, 860x482).
+    next, then again as prev on the following frame).
 
     row_band: optional (r0, r1) full-res row interval where the caller's
     valid points live (e.g. the VP pipeline's ROI bounding box).  Each
-    level keeps only that band (+ _BAND_MARGIN level rows per side): the
-    frame-band gather kernel is HBM-bandwidth-bound on the fetched band
-    height, and the ROI covers ~15% of a dashcam frame.  The pyramid is
-    decimated BEFORE cropping, so level content equals the uncropped
+    level keeps only that band (+ _BAND_MARGIN level rows per side), so
+    the fold, Scharr and window passes touch ~15% of a dashcam frame.  The
+    pyramid is decimated BEFORE cropping, so level content equals the uncropped
     build everywhere; the tracker must be given the same row_band."""
     b = imgs.shape[0]
     pad = max(cfg.win_size) + 2
@@ -427,20 +349,19 @@ def track_points_batched(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Track (B, N, 2) points across B same-size frame pairs in one call.
 
-    ``jax.vmap(track_points)`` over streams is pathological on TPU
-    (measured 24x slower at B=16 than B=1): every window read is a
-    per-point dynamic_slice whose ~2-3.5 us latency times ~13 reads/point
-    dominates.  This path restructures the memory access:
+    ``jax.vmap(track_points)`` over streams issues ~13 per-point window
+    reads per level and iteration; this path restructures the memory
+    access:
 
     * each pyramid level's B frames FOLD along rows into one tall 2-D
       image (per-frame reflect pads + 1 guard row, so windows and the 3x3
       Scharr never cross a frame seam);
-    * per point per level, exactly TWO dynamic_slice DMAs: the
+    * per point per level, exactly TWO dynamic_slice reads: the
       (3, win+1, win+1) prev/ix/iy window at its fixed corner, and a
-      (48, 64) superwindow of `next` around the level's initial estimate;
+      (32, 48) superwindow of `next` around the level's initial estimate;
     * every refinement iteration samples bilinearly INSIDE the prefetched
-      superwindow via weighted shift-selects (pure vector ops, ~0.08 ms
-      for 320 points), not memory fetches.
+      superwindow via weighted shift-selects (pure elementwise ops), not
+      memory fetches.
 
     Deviation envelope: an iterate wandering > ~16 rows / ~24 cols from its
     per-level init samples a clamped window (the single-point oracle path
@@ -460,7 +381,6 @@ def track_points_batched_prepped(
     valid: jnp.ndarray,
     cfg: LKConfig = LKConfig(),
     row_band=None,
-    _stage: str | None = None,
 ):
     """track_points_batched with the PREV frames' prep carried in: takes
     ``fold_tracking_levels`` output for the prev batch, folds only the next
@@ -471,13 +391,7 @@ def track_points_batched_prepped(
     with (see fold_tracking_levels) — valid points must lie inside it;
     results for points outside sample clamped band content (the serving
     pipeline's points always lie in the ROI band, and invalid slots are
-    masked by the caller).
-
-    ``_stage`` is a measurement-only ablation hook (scripts/
-    exp_tracker_split.py): "prep" | "gather" | "tensor" returns a scalar
-    summing exactly that stage's outputs (XLA dead-code-eliminates the
-    rest), so stage costs are timed on the REAL traced program rather
-    than a harness copy that can drift."""
+    masked by the caller)."""
     b, h0, w0 = next_imgs.shape
     n = pts.shape[1]
     nn = b * n
@@ -496,9 +410,6 @@ def track_points_batched_prepped(
     assert len(prev_folded) == cfg.max_level + 1
     assert prev_folded[0].shape == next_folded[0].shape, (
         prev_folded[0].shape, next_folded[0].shape)
-    if _stage == "prep":
-        return sum(jnp.sum(lv) for lv in next_folded)
-    stage_acc = jnp.float32(0.0)
 
     frame_idx = jnp.repeat(jnp.arange(b, dtype=jnp.int32), n)
     flat_pts = pts.reshape(nn, 2).astype(jnp.float32)
@@ -511,13 +422,11 @@ def track_points_batched_prepped(
     for level in range(cfg.max_level, -1, -1):
         prev_f = prev_folded[level]
         next_f = next_folded[level]
-        if not cfg.pallas_windows:
-            # Scharr on the folded-and-padded image, like the single-image
-            # path computes it on the padded level (reflect-pad of the
-            # derivative would flip the sign in the pad region).  The
-            # pallas gather computes it per fetched window instead.
-            ix_f, iy_f = scharr_derivatives(prev_f)
-            stack3 = jnp.stack([prev_f, ix_f, iy_f])
+        # Scharr on the folded-and-padded image, like the single-image
+        # path computes it on the padded level (reflect-pad of the
+        # derivative would flip the sign in the pad region).
+        ix_f, iy_f = scharr_derivatives(prev_f)
+        stack3 = jnp.stack([prev_f, ix_f, iy_f])
 
         # per-frame level dims from the folded geometry (see fold above):
         # rows = b * (h + 2*(pad+1)), cols = w + 2*pad.  With a row band,
@@ -555,8 +464,7 @@ def track_points_batched_prepped(
         cy = jnp.clip(ipy.astype(jnp.int32) - r0 + pad, 0, fph - win_h - 1
                       ) + base_y
 
-        # superwindow corner (needed up-front when the Pallas gather fetches
-        # both window kinds in one kernel call; pure function of next_pt)
+        # superwindow corner: a pure function of the level's initial next_pt
         sy = jnp.clip(
             jnp.floor(next_pt[:, 1] - half_y).astype(jnp.int32) - r0 + pad
             - (sw_h - win_h - 1) // 2,
@@ -568,25 +476,16 @@ def track_points_batched_prepped(
             0, fpw - sw_w,
         )
 
-        if cfg.pallas_windows:
-            raw, sw = _gather_windows_pallas(
-                prev_f, next_f, cy, cx, sy + base_y, sx,
-                win_h, win_w, sw_h, sw_w, frame_info=(b, fph + 2),
+        raw = jax.vmap(
+            lambda y, x: jax.lax.dynamic_slice(
+                stack3, (0, y, x), (3, win_h + 1, win_w + 1)
             )
-        else:
-            raw = jax.vmap(
-                lambda y, x: jax.lax.dynamic_slice(
-                    stack3, (0, y, x), (3, win_h + 1, win_w + 1)
-                )
-            )(cy, cx)
-            sw = jax.vmap(
-                lambda y, x: jax.lax.dynamic_slice(
-                    next_f, (y, x), (sw_h, sw_w)
-                )
-            )(sy + base_y, sx)
-        if _stage == "gather":
-            stage_acc = stage_acc + jnp.sum(raw) + jnp.sum(sw)
-            continue
+        )(cy, cx)
+        sw = jax.vmap(
+            lambda y, x: jax.lax.dynamic_slice(
+                next_f, (y, x), (sw_h, sw_w)
+            )
+        )(sy + base_y, sx)
         w00 = ((1.0 - fx) * (1.0 - fy))[:, None, None]
         w01 = (fx * (1.0 - fy))[:, None, None]
         w10 = ((1.0 - fx) * fy)[:, None, None]
@@ -609,15 +508,11 @@ def track_points_batched_prepped(
         ) / (2.0 * win_w * win_h)
         good_g = (min_eig >= cfg.min_eig_threshold * 1024.0) & (det > 1e-7)
         inv_det = jnp.where(det > 1e-7, 1.0 / det, 0.0)
-        if _stage == "tensor":
-            stage_acc = (stage_acc + jnp.sum(min_eig) + jnp.sum(inv_det)
-                         + jnp.sum(p_win) + jnp.sum(sw))
-            continue
         if level == 0:
             status = status & prev_inside & good_g
         do_refine = prev_inside & good_g
 
-        # --- next superwindow: fetched above alongside the prev windows ----
+        # --- next superwindow: sliced above alongside the prev windows -----
         max_dy = sw_h - win_h - 1
         max_dx = sw_w - win_w - 1
 
@@ -691,8 +586,6 @@ def track_points_batched_prepped(
             j_win = sample_next(next_pt)
             err = jnp.mean(jnp.abs(j_win - p_win), axis=(1, 2))
 
-    if _stage is not None:
-        return stage_acc
     new_pts = jnp.where(flat_valid[:, None], next_pt, flat_pts)
     return (
         new_pts.reshape(b, n, 2),

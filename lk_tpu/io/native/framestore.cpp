@@ -1,9 +1,9 @@
 // framestore — native frame ingest runtime for lk_tpu.
 //
 // The reference's ingest is cv.VideoCapture called synchronously once per
-// frame on the Python thread (reference LK_Final.py:509); at TPU batch rates
-// the host must instead stage frames ahead of the device.  This library
-// provides:
+// frame on the Python thread (reference LK_Final.py:509); at accelerator
+// batch rates the host must instead stage frames ahead of the device.  This
+// library provides:
 //
 //   * an mmap'd reader for the LKRAW container (magic "LKRW", u32 w, h,
 //     channels, nframes; then raw u8 frames) — the framework's zero-decode

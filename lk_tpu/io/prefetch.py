@@ -2,7 +2,8 @@
 
 The reference decodes synchronously inside its frame loop
 (``cap.read()`` at reference LK_Final.py:509-517) — fine at 27 fps, but at
-TPU rates the host-side decode+preprocess serializes with device compute.
+accelerator rates the host-side decode+preprocess serializes with device
+compute.
 Here a producer thread drains the source iterator (any codec
 ``cv2.VideoCapture`` opens, or a synthetic generator), groups frames into
 fixed-size chunks, applies the host transform (BGR->gray + resize + the
@@ -103,7 +104,7 @@ class ChunkPrefetcher:
                 self._put(_SENTINEL, force=True)
 
         self._thread = threading.Thread(
-            target=_produce, name="lk-tpu-ingest", daemon=True
+            target=_produce, name="lk-ingest", daemon=True
         )
         self._thread.start()
 
@@ -140,7 +141,8 @@ class MultiStreamPrefetcher:
     ``batch_transform`` (typically ``device_put`` + the jitted finishing
     blur, so upload overlaps consumer compute), and parks results in a
     bounded queue.  This is the serving-rate replacement for staging whole
-    clips in HBM: decode, upload, and pipeline compute all overlap.
+    clips in device memory: decode, upload, and pipeline compute all
+    overlap.
 
     Streams of unequal length truncate to the shortest (a ragged trailing
     chunk is cut to the minimum length present; serving real mixed-length
@@ -186,7 +188,7 @@ class MultiStreamPrefetcher:
                 self._put(_SENTINEL, force=True)
 
         self._thread = threading.Thread(
-            target=_coordinate, name="lk-tpu-ingest-batch", daemon=True
+            target=_coordinate, name="lk-ingest-batch", daemon=True
         )
         self._thread.start()
 

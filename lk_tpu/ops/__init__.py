@@ -1,4 +1,4 @@
-"""Image primitives: the TPU-native replacements for the reference's OpenCV calls.
+"""Image primitives: the JAX replacements for the reference's OpenCV calls.
 
 Every op is a pure jittable function over float32 arrays in OpenCV's 0..255
 intensity scale (so quality/eigenvalue thresholds carry over unchanged).

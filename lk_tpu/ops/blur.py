@@ -6,9 +6,9 @@ which OpenCV resolves to the separable [1,2,1]/4 kernel with BORDER_REFLECT_101
 pyramid with pyrDown's [1,4,6,4,1]/16 kernel, REFLECT_101 border and even-pixel
 decimation to size ceil(n/2) (verified bit-exact).
 
-Implementation note (TPU): tiny separable stencils are written as shifted adds
-on a reflect-padded array — XLA fuses these into a handful of vector ops, and
-they vectorize across arbitrary leading batch dims for free.
+Implementation note: tiny separable stencils are written as shifted adds on a
+reflect-padded array — XLA fuses these into a handful of elementwise loops,
+and they vectorize across arbitrary leading batch dims for free.
 """
 
 from __future__ import annotations
@@ -80,18 +80,17 @@ def pyr_down(img: jnp.ndarray, fast: bool = False) -> jnp.ndarray:
 
     Output spatial size is ceil(n/2) per axis, matching cv.pyrDown.
 
-    TPU mapping: filter rows as shifted adds -> decimate rows (sublane
-    stride, cheap) -> filter+decimate columns as ONE banded matmul on the
-    MXU.  A lane-axis strided slice ([..., ::2]) is a multi-ms relayout at
-    these sizes (measured), and the matmul replaces it outright.
+    Exact path: filter rows as shifted adds -> decimate rows (strided
+    slice) -> filter+decimate columns as ONE banded matmul at HIGHEST
+    precision (full f32).
 
-    fast=True maps BOTH axes to banded matmuls at DEFAULT (bf16-input)
-    matmul precision: the row shifted-add pass and its full-height f32
-    intermediate disappear, and the HIGHEST-precision column matmul
-    (6 bf16 MXU passes on v5e) drops to one.  Output differs from the exact
-    path by bf16 data rounding only (<=0.5 intensity on 0..255 images) —
-    fine for the coarse-search pyramid of dense LK, NOT for paths that
-    promise cv.pyrDown bit-exactness (the default remains exact).
+    fast=True maps BOTH axes to banded matmuls at DEFAULT matmul precision:
+    the row shifted-add pass and its full-height f32 intermediate
+    disappear.  DEFAULT precision may round the matmul operands (TF32 on
+    tensor-core GPUs: 10 mantissa bits, <= 0.25 intensity on 0..255
+    images; exact f32 on the CPU) — fine for the coarse-search pyramid of
+    dense LK, NOT for paths that promise cv.pyrDown bit-exactness (the
+    default remains exact).
     """
     if fast:
         mr = jnp.asarray(_pyr_col_matrix(img.shape[-2]))
@@ -114,75 +113,6 @@ def pyr_down(img: jnp.ndarray, fast: bool = False) -> jnp.ndarray:
     x = x[tuple(sl)]
     m = jnp.asarray(_pyr_col_matrix(x.shape[-1]))
     return jnp.matmul(x, m, precision=jax.lax.Precision.HIGHEST)
-
-
-@functools.lru_cache(maxsize=128)
-def _pyr_matrix_padded(n_true_in: int, n_pad_in: int, off_in: int,
-                       n_pad_out: int, off_out: int) -> np.ndarray:
-    """(n_pad_in, n_pad_out) band matrix decimating ONE axis of an
-    edge-padded plane directly into the next level's edge-padded layout.
-
-    Input: true content of length ``n_true_in`` at ``off_in`` inside an
-    ``n_pad_in`` axis whose outside is edge replication.  Output: the
-    decimated true content (ceil(n_true_in/2), 5-tap REFLECT_101 filter,
-    even-pixel decimation — the same math as _pyr_col_matrix) lands at
-    ``off_out`` inside ``n_pad_out``, with the out-of-range output
-    indices CLAMPED to the true edges — which reproduces the edge-mode
-    pad of the decimated level exactly.  Because the input's pad region
-    is edge replication, the reflect taps may equivalently read clamped
-    input indices; we keep them inside the true range so the matrix
-    never depends on how wide the input pad is.
-
-    The extra padded rows/cols multiply through as exact zeros, so the
-    result equals pad(pyr_down(true)) up to f32 accumulation-split
-    rounding of the SAME 5 tap products (not bit-guaranteed — see
-    DenseLKConfig.padded_build)."""
-    n_out_true = -(-n_true_in // 2)
-    m = np.zeros((n_pad_in, n_pad_out), np.float32)
-    for o in range(n_pad_out):
-        d = min(max(o - off_out, 0), n_out_true - 1)
-        for k, t in enumerate(_GAUSS5):
-            i = 2 * d + k - 2
-            if i < 0:
-                i = -i
-            if i >= n_true_in:
-                i = 2 * n_true_in - 2 - i
-            m[off_in + i, o] += np.float32(t)
-    return m
-
-
-def pyr_down_padded(
-    xp: jnp.ndarray,
-    true_hw: tuple[int, int],
-    in_off: tuple[int, int],
-    out_pad_hw: tuple[int, int],
-    out_off: tuple[int, int],
-) -> jnp.ndarray:
-    """pyr_down(fast=True) from an edge-padded plane straight into the
-    next level's edge-padded layout (both axes as banded matmuls): the
-    unpadded intermediate and the separate jnp.pad — two full-plane HBM
-    materializations per level in the video build — disappear.
-
-    xp: (..., H_pad, W_pad) with true (h, w) content at in_off and edge
-    replication outside.  Returns (..., out_pad_hw) with the decimated
-    level at out_off and edge-replicated pads.
-    """
-    h, w = true_hw
-    mr = jnp.asarray(_pyr_matrix_padded(
-        h, xp.shape[-2], in_off[0], out_pad_hw[0], out_off[0]))
-    mc = jnp.asarray(_pyr_matrix_padded(
-        w, xp.shape[-1], in_off[1], out_pad_hw[1], out_off[1]))
-    x = xp.astype(jnp.float32)
-    y = jax.lax.dot_general(
-        x, mr, (((x.ndim - 2,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    # contracted-row result axis moved last: (..., W_pad, H_out)
-    y = jnp.swapaxes(y, -1, -2)
-    return jax.lax.dot_general(
-        y, mc, (((y.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
 
 
 def gaussian_pyramid(img: jnp.ndarray, max_level: int) -> list[jnp.ndarray]:

@@ -9,11 +9,8 @@ costs win_h*win_w adds per pixel and dominated the dense-LK frame time).
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
-import numpy as np
-import jax
 import jax.numpy as jnp
 
 
@@ -33,7 +30,7 @@ def box_sum(
     separate box windows; the 15x15 window is the dense-LK hot loop's single
     biggest cost when done naively).
 
-    sum_dtype=bfloat16 halves the HBM traffic of both passes (the op is
+    sum_dtype=bfloat16 halves the memory traffic of both passes (the op is
     bandwidth-bound at frame sizes); ~3 decimal digits survive the 15-term
     sums — callers must tolerate ~1e-2 relative error.  Output cast back to
     the input's float dtype (f32 for integer inputs).
@@ -62,61 +59,3 @@ def box_sum(
 
     y = axis_sum(x, win_h, pad_h, x.ndim - 2)
     return axis_sum(y, win_w, pad_w, x.ndim - 1).astype(out_dtype)
-
-
-@functools.lru_cache(maxsize=64)
-def _band_matrix(n: int, before: int, after: int, border: str):
-    """(n, n) banded 0/1 matrix M with (M @ x)[i] = sum_{d=-before..after} x[i+d].
-
-    Out-of-range taps fold per ``border``: dropped ("zero"), onto the edge
-    entry ("edge"), or onto the BORDER_REFLECT_101 mirror ("reflect").
-    """
-    m = np.zeros((n, n), np.float32)
-    idx = np.arange(n)
-    for d in range(-before, after + 1):
-        j = idx + d
-        if border == "zero":
-            ok = (j >= 0) & (j < n)
-            np.add.at(m, (idx[ok], j[ok]), 1.0)
-            continue
-        if border == "edge":
-            j = np.clip(j, 0, n - 1)
-        elif border == "reflect":  # BORDER_REFLECT_101: period 2n-2
-            j = np.abs(j) % (2 * n - 2)
-            j = np.where(j >= n, 2 * n - 2 - j, j)
-        else:
-            raise ValueError(border)
-        np.add.at(m, (idx, j), 1.0)
-    return m
-
-
-def box_sum_matmul(
-    x: jnp.ndarray, win: Tuple[int, int], border: str = "zero",
-    compute_dtype=jnp.float32,
-) -> jnp.ndarray:
-    """box_sum computed as two banded matmuls on the MXU.
-
-    The separable shifted-add form is VPU work; expressing each pass as a
-    multiply by an (N, N) banded 0/1 matrix moves it onto the MXU (the same
-    trick as ops/resize.py / blur.pyr_down).  The band matrices are exact in
-    bf16 (entries 0/1), so ``compute_dtype=bfloat16`` only rounds the *data*
-    once per pass, accumulating in f32 (preferred_element_type).
-    """
-    win_w, win_h = win
-    h, w = x.shape[-2], x.shape[-1]
-    mh = jnp.asarray(_band_matrix(h, (win_h - 1) // 2, win_h // 2, border),
-                     compute_dtype)
-    mw = jnp.asarray(_band_matrix(w, (win_w - 1) // 2, win_w // 2, border),
-                     compute_dtype)
-    xc = x.astype(compute_dtype)
-    y = jax.lax.dot_general(
-        mh, xc, (((1,), (x.ndim - 2,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    if x.ndim > 2:  # dot_general put the row axis first; restore layout
-        y = jnp.moveaxis(y, 0, -2)
-    y = jax.lax.dot_general(
-        y.astype(compute_dtype), mw, (((y.ndim - 1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    return y

@@ -46,7 +46,10 @@ def warp_perspective(
     xs = jax.lax.broadcasted_iota(jnp.float32, (out_h, out_w), 1)
     ones = jnp.ones_like(xs)
     coords = jnp.stack([xs, ys, ones])                  # (3, H, W)
-    mapped = jnp.einsum("ij,jhw->ihw", hinv, coords)
+    # HIGHEST: a reduced-precision (TF32) product would round hinv's
+    # entries enough to move sample points by ~1 px at 1920-px coordinates
+    mapped = jnp.einsum("ij,jhw->ihw", hinv, coords,
+                        precision=jax.lax.Precision.HIGHEST)
     sx = mapped[0] / mapped[2]
     sy = mapped[1] / mapped[2]
     return bilinear_sample(img.astype(jnp.float32), sx, sy)

@@ -1,7 +1,7 @@
 """Polygon -> mask rasterization (replaces ``cv.fillPoly`` for the ROI).
 
 The reference builds one road-trapezoid mask plus four quadrant sub-masks from
-integer-vertex convex quads (reference LK_Final.py:448-472).  On TPU a convex
+integer-vertex convex quads (reference LK_Final.py:448-472).  Here a convex
 polygon is the intersection of half-planes, so the mask is a product of edge
 sign tests evaluated on a pixel-center grid — pure vector math, no scanline.
 

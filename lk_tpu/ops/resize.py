@@ -3,9 +3,9 @@
 The reference resizes every frame to a fixed width with imutils, whose default
 interpolation is INTER_AREA (reference LK_Final.py:429,517 via imutils.resize).
 INTER_AREA for downscale averages each destination pixel's source footprint —
-exactly a pair of sparse row/col weighting matrices.  On TPU we express the
-resize as two matmuls ``Wy @ img @ Wx^T`` so the MXU does the work; the weight
-matrices are computed once per (src, dst) shape at trace time (static shapes).
+exactly a pair of sparse row/col weighting matrices, so the resize is two
+matmuls ``Wy @ img @ Wx^T``; the weight matrices are computed once per
+(src, dst) shape at trace time (static shapes).
 
 Verified against cv2 5.0 INTER_AREA to ~3e-5 absolute on float32.
 """
@@ -49,8 +49,9 @@ def linear_weights(n_src: int, n_dst: int) -> np.ndarray:
 
 
 def _apply_sep(img: jnp.ndarray, wy: np.ndarray, wx: np.ndarray) -> jnp.ndarray:
-    # HIGHEST precision: resize feeds subpixel tracking, and the TPU default
-    # (bf16 matmul) would inject ~0.5% intensity error.
+    # HIGHEST precision: resize feeds subpixel tracking, and a reduced-
+    # precision default (TF32 on tensor-core GPUs) would inject ~0.1%
+    # intensity error.
     x = img.astype(jnp.float32)
     # (..., H, W) @ (W, Wd) then contract H with Wy.
     y = jnp.matmul(x, jnp.asarray(wx).T, precision=jax.lax.Precision.HIGHEST)
@@ -75,9 +76,9 @@ def resize_linear(img: jnp.ndarray, dst_h: int, dst_w: int) -> jnp.ndarray:
 def upsample2_linear(img: jnp.ndarray, dst_h: int, dst_w: int) -> jnp.ndarray:
     """~2x linear upsample of trailing (H, W) as a pure stencil.
 
-    Matmul-based resize costs O(dst*src) MACs per output row — ruinous for
-    the per-level flow upsample in pyramidal LK (measured: it dominated the
-    1080p frame time).  Exact INTER_LINEAR for dst == 2*src; for the pyramid's
+    Matmul-based resize costs O(dst*src) MACs per output row — far more
+    than the per-level flow upsample in pyramidal LK needs.  Exact
+    INTER_LINEAR for dst == 2*src; for the pyramid's
     ceil-half sizes (dst == 2*src - 1) the scale-2 coefficients are kept and
     the result cropped, displacing samples by < 0.3 px at the far border —
     irrelevant for a flow initialization that is refined afterwards.

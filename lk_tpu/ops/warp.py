@@ -7,9 +7,8 @@ Two access patterns, matching the two LK modes:
 
 * ``bilinear_sample`` / ``warp_by_flow`` — arbitrary-coordinate gathers used by
   the dense flow field path (one gather per iteration over the whole frame).
-* ``extract_patch`` — a (h+1, w+1) dynamic_slice plus 4-tap blend used by the
-  sparse point tracker, which avoids scatter/gather entirely (dynamic_slice is
-  cheap on TPU and the patch is tiny).
+* ``extract_patch`` — a (h+1, w+1) dynamic_slice plus 4-tap blend for
+  per-point windows (the patch is tiny, so one contiguous slice suffices).
 """
 
 from __future__ import annotations
@@ -59,53 +58,6 @@ def warp_by_flow(img: jnp.ndarray, flow: jnp.ndarray) -> jnp.ndarray:
     ys = jax.lax.broadcasted_iota(jnp.float32, (h, w), 0)
     xs = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1)
     return bilinear_sample(img, xs + flow[..., 0], ys + flow[..., 1])
-
-
-def shift_select_warp(
-    img: jnp.ndarray,
-    flow: jnp.ndarray,
-    max_disp: Tuple[int, int],
-) -> jnp.ndarray:
-    """Bounded-displacement bilinear warp without gathers.
-
-    out(p) = img(p + clamp(flow(p))) where |flow_x| <= rx, |flow_y| <= ry
-    after clamping.  XLA's 2-D gather lowers to one-element DMAs on TPU
-    (~23 ms for a 1080p frame — measured); this version decomposes the warp
-    into a vertical then horizontal pass of sum_d select(idx==d) * shift(d)
-    terms — pure vectorized shifted multiply-adds, no gather.  Cost is
-    O(2*r+2) fused MACs per pixel per axis.
-
-    Displacements beyond the bound are clamped (the pyramid bounds per-level
-    residual flow; LK cannot track beyond ~half a window per level anyway).
-
-    img: (H, W); flow: (H, W, 2) (dx, dy); max_disp: (rx, ry) integers.
-    """
-    rx, ry = max_disp
-    h, w = img.shape[-2], img.shape[-1]
-    x = img.astype(jnp.float32)
-
-    def one_axis(src, disp, r, axis):
-        d_cl = jnp.clip(disp, -r, r)
-        d0 = jnp.floor(d_cl)
-        frac = (d_cl - d0).astype(jnp.float32)
-        d0 = d0.astype(jnp.int32)
-        pad_cfg = [(0, 0)] * src.ndim
-        pad_cfg[axis] = (r, r + 1)
-        padded = jnp.pad(src, pad_cfg, mode="edge")
-        n = src.shape[axis]
-        out = jnp.zeros_like(src)
-        for d in range(-r, r + 1):
-            sl = [slice(None)] * src.ndim
-            sl[axis] = slice(d + r, d + r + n)
-            shifted = padded[tuple(sl)]
-            sl[axis] = slice(d + r + 1, d + r + 1 + n)
-            shifted_p1 = padded[tuple(sl)]
-            sel = (d0 == d).astype(jnp.float32)
-            out = out + sel * (shifted + frac * (shifted_p1 - shifted))
-        return out
-
-    tmp = one_axis(x, flow[..., 1], ry, axis=-2)   # vertical first
-    return one_axis(tmp, flow[..., 0], rx, axis=-1)
 
 
 def extract_patch(

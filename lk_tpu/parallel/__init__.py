@@ -1,4 +1,4 @@
-"""Multi-chip scaling: device meshes, stream data-parallelism, spatial sharding.
+"""Multi-device scaling: device meshes, stream data-parallelism, spatial sharding.
 
 The reference is strictly single-threaded (SURVEY.md §2.5); scale here comes
 from two orthogonal mesh axes:
@@ -6,7 +6,7 @@ from two orthogonal mesh axes:
 * ``data`` — independent dashcam streams (embarrassingly parallel, the
   primary axis; no cross-stream communication);
 * ``spatial`` — row-sharding of large frames for the dense flow path, with
-  halo exchange over ICI via shard_map + ppermute (the framework's
+  device-to-device halo exchange via shard_map + ppermute (the framework's
   sequence/context-parallel analogue).
 
 Tensor/pipeline/expert parallelism have no counterpart in this workload

@@ -6,10 +6,6 @@ of one level's halo exchange; this module instead lets GSPMD partition the
 upsampling — by annotating the inputs row-sharded and letting XLA insert the
 collective-permute halos (verified: matches the single-device result to
 2.6e-6 on an 8-way row shard).
-
-Caveat: GSPMD cannot partition pallas_call, so this path uses the XLA
-shift-select warp (use_pallas_* must stay off); it is the multi-chip
-scale-out path, while the Pallas warp is the single-chip throughput path.
 """
 
 from __future__ import annotations
@@ -33,9 +29,6 @@ def sharded_dense_pyramidal_lk(
     """
     if dense_cfg is None:
         dense_cfg = DenseLKConfig()
-    assert not (dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused), (
-        "GSPMD cannot partition pallas_call; use the XLA warp path"
-    )
     sh = NamedSharding(mesh, P(axis, None))
     sh3 = NamedSharding(mesh, P(axis, None, None))
 

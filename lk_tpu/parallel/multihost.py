@@ -1,24 +1,22 @@
 """Multi-host scale-out: ``jax.distributed`` wiring + global-mesh helpers.
 
 The reference is one OS process end-to-end (SURVEY.md §2.5/§5.8 — no
-threads, no multiprocessing, no communication backend).  At pod scale the
+threads, no multiprocessing, no communication backend).  Across hosts the
 framework's natural layout is:
 
-- **streams (data axis) across hosts over DCN** — streams are independent
-  (zero collectives in the compiled step), so the slow inter-slice fabric
-  carries no traffic; each host decodes only the streams whose shards it
-  owns (``process_stream_slice``).
-- **spatial sharding inside a slice over ICI** — the halo exchanges of
+- **streams (data axis) across hosts over the network** — streams are
+  independent (zero collectives in the compiled step), so the slow
+  inter-host fabric carries no traffic; each host decodes only the streams
+  whose shards it owns (``process_stream_slice``).
+- **spatial sharding inside a host** — the halo exchanges of
   ``parallel/spatial.py`` ride neighbor ``ppermute``s, so the spatial axis
-  must map to physically adjacent devices.  ``global_stream_mesh`` keeps
-  ``data`` outermost (contiguous process blocks → DCN) and ``spatial``
-  innermost (within a host's local devices → ICI).
+  must map to devices joined by the fast local links.
+  ``global_stream_mesh`` keeps ``data`` outermost (contiguous process
+  blocks → network) and ``spatial`` innermost (a host's local devices).
 
-On a real TPU pod ``jax.distributed.initialize()`` auto-detects the
-coordinator from the TPU environment; on CPU/GPU clusters (and in the
-2-process CPU test, tests/test_multihost.py) the coordinator address,
-process count, and process id are passed explicitly, with gloo cross-process
-collectives on CPU.
+The coordinator address, process count, and process id are passed to
+``jax.distributed.initialize()`` explicitly (as in the 2-process CPU test,
+tests/test_multihost.py), with gloo cross-process collectives on CPU.
 """
 
 from __future__ import annotations
@@ -39,7 +37,7 @@ def init_multihost(
     """Initialize the JAX distributed runtime for this process.
 
     With no arguments, relies on ``jax.distributed.initialize`` cluster
-    auto-detection (TPU pods).  For manual clusters pass the coordinator's
+    auto-detection (managed clusters only).  Otherwise pass the coordinator's
     ``host:port`` plus this process's rank.  ``cpu_collectives`` selects the
     cross-process collective implementation when running on the CPU backend
     (gloo is the portable choice; "mpi" if launched under mpirun).
@@ -66,8 +64,8 @@ def global_stream_mesh(
 
     ``data`` (streams) is the outermost axis: with jax's process-major
     global device order, consecutive ``data`` rows land on the same process
-    first — stream parallelism never crosses DCN with traffic, and the
-    ``spatial`` axis stays inside each host's local ICI domain.
+    first — stream parallelism never sends traffic between hosts, and the
+    ``spatial`` axis stays inside each host's local devices.
     """
     devs = np.array(jax.devices())
     n = devs.size

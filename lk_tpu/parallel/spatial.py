@@ -1,7 +1,7 @@
 """Spatial (row-sharded) dense LK with halo exchange — the SP/CP analogue.
 
-For frames too large for one chip (or to cut per-frame latency), rows are
-sharded over the ``spatial`` mesh axis; halos move over ICI with
+For frames too large for one device (or to cut per-frame latency), rows are
+sharded over the ``spatial`` mesh axis; halos move between devices with
 jax.lax.ppermute inside shard_map (SURVEY.md §2.5, §5.7).
 
 Halo envelope (documented because it is the correctness contract):
@@ -93,14 +93,10 @@ def spatial_dense_lk_level(
     Interior rows match the single-device level for |flow| <= max_disp
     (see the module docstring for the halo envelope).
 
-    Default measured (scripts/exp_spatial_halo.py, 8-way 1080p, 6 iters,
-    win 15, disp 8): per-iter exchange 1462/1482/1485 ms vs single-exchange
-    2104/2165/2234 (CPU mesh, collectives ~free — the delta isolates the
-    wide halo's redundant compute: 108 redundant rows on a 135-row shard =
-    80%).  The ICI side the CPU mesh can't see is bounded: 5 extra
-    exchange rounds x ~0.58 MB of flow halo = ~65 us/level at ~45 GB/s per
-    link — two orders below the ~600 ms compute delta, so per-iter wins
-    everywhere sharding is worth doing at all.  Numerics: the eps
+    Default: per-iter exchange.  At 8-way 1080p (6 iters, win 15, disp 8)
+    the single exchange's wide halo is 108 redundant rows on a 135-row
+    shard (80% extra compute), while per-iter exchange adds 5 rounds of
+    ~0.58 MB of flow halo per level.  Numerics: the eps
     early-stop mask is carried across exchange rounds (see module
     docstring), so per-iter matches the unsharded program except for a
     ~2e-4 population of eps-threshold ulp flips; single-exchange
@@ -125,11 +121,7 @@ def spatial_dense_lk_level(
         # masked pixels outside the call reproduces the unsharded sequence
         # exactly on interior rows: the box sums read start-of-round flow,
         # so a frozen pixel feeds its neighbors the same value the
-        # unsharded iteration would.  The Pallas fused kernels have no eps
-        # stop at all (every pixel takes |delta|~0 steps after
-        # convergence), so there the 1-iteration chop is already exact and
-        # the mask must stay off.
-        track_eps = not dense_cfg.use_pallas_fused
+        # unsharded iteration would.
         eps2 = jnp.float32(cfg.eps * cfg.eps)
 
         def local_fn(prev, nxt, flow):
@@ -145,8 +137,6 @@ def spatial_dense_lk_level(
                 f_new = run_level(prev_h, next_h,
                                   jnp.stack([fx, fy], axis=-1),
                                   base, one_iter)
-                if not track_eps:
-                    return f_new, active
                 delta = f_new - f
                 f_kept = jnp.where(active[..., None], f_new, f)
                 active = active & (

@@ -2,7 +2,7 @@
 
 Each stream's PipelineState and frame chunk shard on their leading axis;
 there is no cross-stream communication, so XLA compiles the vmapped step
-with zero collectives — scaling is linear in chips (SURVEY.md §2.5).
+with zero collectives — scaling is linear in devices (SURVEY.md §2.5).
 """
 
 from __future__ import annotations

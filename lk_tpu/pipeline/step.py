@@ -120,7 +120,6 @@ def make_step(
     # response map and the greedy argmax/suppression loops run on the ROI's
     # bounding box, not the full frame — the response needs a stencil halo,
     # and the crop aligns to (8, 128) so the slice is a plain tile copy.
-    # (Measured at 860x482/B=32: detection was 61% of the serving step.)
     import numpy as _np
 
     _sub_np = _np.asarray(sub_masks) > 0
@@ -300,7 +299,7 @@ def make_step(
         )
         ctx = _pre(state, gray, p1, st)
         # lax.cond executes only the taken branch: detection (response map +
-        # greedy selections, ~1 ms) runs only on replenish frames.
+        # greedy selections) runs only on replenish frames.
         det_pts, det_valid = jax.lax.cond(
             ctx["trigger"],
             lambda gg: detect(gg),
@@ -321,7 +320,7 @@ def make_step(
         twice (chunk runners seed it from states.prev_gray at chunk start).
 
         Two batching hazards drive this variant (vs jax.vmap(step)):
-        tracking vmapped over streams turns window reads into pathological
+        tracking vmapped over streams turns window reads into many small
         gathers (flow.sparse.track_points_batched restructures them), and a
         vmapped lax.cond runs BOTH branches — so detection is gated on
         ``any(trigger)`` across streams (a scalar), keeping the per-stream

@@ -3,7 +3,8 @@
 Replaces the live matplotlib window and post-run plots (reference
 ``plot_vp`` LK_Final.py:753-776, ``data_statistic`` LK_Final.py:728-739, the
 ``all_lines_frame`` accumulator LK_Final.py:504,563-564,713-719) with figure
-factories that render to files — the pipelines run headless on TPU hosts.
+factories that render to files — the pipelines run headless on
+accelerator hosts.
 """
 
 from __future__ import annotations

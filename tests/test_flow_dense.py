@@ -2,6 +2,7 @@
 
 import cv2 as cv
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -144,14 +145,12 @@ class TestDenseConfigSchedules:
     def test_level_schedules(self):
         from lk_tpu.config import DenseLKConfig
 
-        d = DenseLKConfig(iter_schedule=(1, 2, 6), warp_local_schedule=(3, 4, 5),
-                          outer_iters=9, warp_local=7, max_disp=32)
+        d = DenseLKConfig(iter_schedule=(1, 2, 6), outer_iters=9,
+                          max_disp=32)
         assert [d.level_iters(lv) for lv in (0, 1, 2, 3)] == [1, 2, 6, 6]
-        assert [d.level_local(lv) for lv in (0, 1, 2, 3)] == [3, 4, 5, 5]
-        # empty schedules fall back to the scalar knobs
-        d2 = DenseLKConfig(iter_schedule=(), warp_local_schedule=(),
-                           outer_iters=9, warp_local=7)
-        assert d2.level_iters(2) == 9 and d2.level_local(2) == 7
+        # an empty schedule falls back to the scalar knob
+        d2 = DenseLKConfig(iter_schedule=(), outer_iters=9)
+        assert d2.level_iters(2) == 9
         assert [d.level_disp(lv) for lv in (0, 1, 2, 4)] == [32, 16, 8, 4]
 
 
@@ -180,30 +179,6 @@ def test_multistream_matches_per_stream_video(rng):
                                       np.asarray(single.valid))
 
 
-def test_base_prepad_only_when_plan_materializes():
-    """The pyramid base pre-pad is taken ONLY when the pad-free video plan
-    exists at the padded base (r5: a speculative 720->768-row pad fed
-    decimated replication into the coarse search and broke the natural
-    gate — see BENCH_NOTES round-5 accuracy wave)."""
-    from lk_tpu.config import DenseLKConfig
-    from lk_tpu.flow.dense import pyramid_base_geometry, _video_level_plan
-
-    cfg = LKConfig()
-    dcfg = DenseLKConfig(use_pallas_warp=True, pallas_pyramid=True)
-    for h, w in [(720, 1280), (544, 960), (272, 480), (1080, 1920),
-                 (128, 1024), (860, 483)]:
-        base = pyramid_base_geometry(h, w, cfg, dcfg)
-        # the SAME plan call pyramid_base_geometry gates on (true_hw
-        # included — the depth clamps must agree near the threshold)
-        plan = _video_level_plan(cfg, dcfg, base, true_hw=(h, w))
-        if base != (h, w):
-            # any pad must come with a materialized plan
-            assert plan is not None, (h, w, base)
-    # the two known plan geometries keep their (thin) pads
-    assert pyramid_base_geometry(1080, 1920, cfg, dcfg) == (1088, 2048)
-    assert pyramid_base_geometry(720, 1280, cfg, dcfg) == (720, 1280)
-
-
 def test_effective_cfg_depth_clamped_by_window():
     """cv2 caps maxLevel so the top level >= winSize; small frames must
     not build a top level smaller than the LK window (ADVICE r4)."""
@@ -219,75 +194,197 @@ def test_effective_cfg_depth_clamped_by_window():
     assert _effective_cfg(cfg, dcfg, (20, 20)).max_level == 0
 
 
-def test_plan_depth_agrees_with_builders_near_clamp_threshold(rng):
-    """_video_level_plan must clamp depth by the TRUE frame dims like the
-    builders/solvers do: at 119 true rows (padded base 128) the old code
-    planned 4 levels while consumers clamped to 3 and silently solved a
-    mid-plan level as the top (r5 review finding)."""
-    import cv2 as cv
+# --- plain NumPy reference of one inverse-compositional level --------------
 
+
+def _np_sep(x, taps, axis):
+    """Correlate along axis with REFLECT_101 borders (float64)."""
+    k = len(taps)
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (k // 2, k // 2)
+    xp = np.pad(x, pad, mode="reflect")
+    n = x.shape[axis]
+    return sum(t * np.take(xp, np.arange(i, i + n), axis=axis)
+               for i, t in enumerate(taps))
+
+
+def _np_box(x, win):
+    """SAME box sum, zero border, window (w, h) in OpenCV order."""
+    win_w, win_h = win
+    xp = np.pad(x, (((win_h - 1) // 2, win_h // 2),
+                    ((win_w - 1) // 2, win_w // 2)))
+    c = np.pad(xp.cumsum(0).cumsum(1), ((1, 0), (1, 0)))
+    h, w = x.shape
+    return (c[win_h:win_h + h, win_w:win_w + w] - c[:h, win_w:win_w + w]
+            - c[win_h:win_h + h, :w] + c[:h, :w])
+
+
+def _np_bilinear(img, x, y):
+    """Exact bilinear sample at (x, y), coordinates clamped to the frame."""
+    h, w = img.shape
+    x = np.clip(x, 0, w - 1)
+    y = np.clip(y, 0, h - 1)
+    x0 = np.floor(x).astype(int)
+    y0 = np.floor(y).astype(int)
+    x1 = np.minimum(x0 + 1, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    fx, fy = x - x0, y - y0
+    top = img[y0, x0] * (1 - fx) + img[y0, x1] * fx
+    bot = img[y1, x0] * (1 - fx) + img[y1, x1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _np_level(prev, nxt, flow0, win, iters, r, thr=1e-4, eps=0.03):
+    prev = prev.astype(np.float64)
+    nxt = nxt.astype(np.float64)
+    smooth, diff = (3 / 16, 10 / 16, 3 / 16), (-0.5, 0.0, 0.5)
+    ix = _np_sep(_np_sep(prev, smooth, 0), diff, 1)
+    iy = _np_sep(_np_sep(prev, smooth, 1), diff, 0)
+    a11, a12, a22 = (_np_box(ix * ix, win), _np_box(ix * iy, win),
+                     _np_box(iy * iy, win))
+    det = a11 * a22 - a12 * a12
+    min_eig = (a22 + a11 - np.sqrt((a11 - a22) ** 2 + 4 * a12 * a12)) / (
+        2.0 * win[0] * win[1])
+    valid = (min_eig >= thr * 1024.0) & (det > 1e-7)
+    inv_det = np.where(valid, 1.0 / np.where(valid, det, 1.0), 0.0)
+    h, w = prev.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    u, v = (flow0[..., 0].astype(np.float64),
+            flow0[..., 1].astype(np.float64))
+    active = np.ones((h, w), bool)
+    for _ in range(iters):
+        jw = _np_bilinear(nxt, xs + np.clip(u, -r, r), ys + np.clip(v, -r, r))
+        res = jw - prev - (ix * u + iy * v)
+        b1 = _np_box(ix * res, win) + a11 * u + a12 * v
+        b2 = _np_box(iy * res, win) + a12 * u + a22 * v
+        du = (a12 * b2 - a22 * b1) * inv_det
+        dv = (a12 * b1 - a11 * b2) * inv_det
+        upd = active & valid
+        u = np.clip(np.where(upd, u + du, u), -r, r)
+        v = np.clip(np.where(upd, v + dv, v), -r, r)
+        active &= du * du + dv * dv > eps * eps
+    return np.stack([u, v], -1), valid
+
+
+@pytest.mark.parametrize("iters", [1, 3, 6])
+@pytest.mark.parametrize("win", [(7, 7), (15, 15), (9, 15)])
+def test_level_matches_numpy_reference(rng, win, iters):
+    """The XLA level solve == a float64 NumPy transcription of the
+    inverse-compositional update, over window x iteration count."""
     from lk_tpu.config import DenseLKConfig
-    from lk_tpu.flow import dense
+    from lk_tpu.io.scenes import affine_scene, zoom_rot_map
 
-    cfg = LKConfig()
-    dcfg = DenseLKConfig(use_pallas_warp=True, pallas_pyramid=True)
-    for h, w in [(119, 1024), (115, 512), (113, 256)]:
-        base = dense.pyramid_base_geometry(h, w, cfg, dcfg)
-        plan = dense._video_level_plan(cfg, dcfg, base, true_hw=(h, w))
-        eff = dense._effective_cfg(cfg, dcfg, (h, w))
-        if plan is not None:
-            assert len(plan) == eff.max_level + 1, (h, w, len(plan))
-    # and the video entry runs end-to-end at such a geometry (CPU path)
-    h, w = 119, 256
-    img = cv.GaussianBlur(
-        (rng.random((h, w)) * 255).astype(np.float32), (0, 0), 2.0)
-    fr = np.stack([img, np.roll(img, 1, axis=1)])
-    out = dense.dense_pyramidal_lk_video(jnp.asarray(fr))
-    assert out.flow.shape == (1, h, w, 2)
+    h, w = 72, 104
+    sc = affine_scene(rng, h, w, zoom_rot_map(h, w, 1.01, 0.8), n_frames=2)
+    flow0 = np.zeros((h, w, 2), np.float32)
+    flow0[..., 0] = 0.4
+    res = dense_lk_level(jnp.asarray(sc.frames[0]), jnp.asarray(sc.frames[1]),
+                         jnp.asarray(flow0), LKConfig(win_size=win),
+                         DenseLKConfig(outer_iters=iters), max_disp=8)
+    ref, ref_valid = _np_level(sc.frames[0], sc.frames[1], flow0, win,
+                               iters, 8)
+    np.testing.assert_array_equal(np.asarray(res.valid), ref_valid)
+    d = np.linalg.norm(np.asarray(res.flow) - ref, axis=-1)
+    # f32 vs f64: per-pixel eps-freeze decisions may flip by one step
+    assert d.mean() < 1e-3, d.mean()
+    assert np.percentile(d, 99) < 1e-2, np.percentile(d, 99)
 
 
-def test_padded_build_matches_two_step_build(rng):
-    """padded_build (combined pad + offset band-matmul decimation) must
-    reproduce the two-step prepadded build to f32 rounding at every
-    level, and the video flows through it must match the two-step chain
-    closely (the deviation class is accumulation-split rounding of the
-    same bf16-input matmul taps — ~3e-5 intensity)."""
-    import cv2 as cv
-    import dataclasses
+def _np_warp(img, flow, r):
+    h, w = img.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    f = np.clip(flow.astype(np.float64), -r, r)
+    return _np_bilinear(img.astype(np.float64), xs + f[..., 0],
+                        ys + f[..., 1])
 
-    from lk_tpu.config import DenseLKConfig
-    from lk_tpu.flow import dense
 
-    cfg = LKConfig(max_level=1)
-    d0 = DenseLKConfig(use_pallas_fused=True, iter_schedule=(1, 4),
-                       fused_coarse_chain=True, pyramid_levels=2,
-                       video_chunk=0)
-    dp = dataclasses.replace(d0, padded_build=True)
-    h, w = 128, 1024
-    plan = dense._video_level_plan(
-        cfg, d0, dense.pyramid_base_geometry(h, w, cfg, d0),
-        true_hw=(h, w))
-    assert plan is not None
-    img = cv.GaussianBlur(
-        (rng.random((h, w)) * 255).astype(np.float32), (0, 0), 2.0)
-    lv0 = dense.build_frame_levels_prepadded(jnp.asarray(img), cfg, d0,
-                                             plan)
-    lvp = dense.build_frame_levels_prepadded(jnp.asarray(img), cfg, dp,
-                                             plan)
-    assert len(lv0) == len(lvp)
-    for a, b in zip(lv0, lvp):
-        assert a.shape == b.shape
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=1e-3)
+@pytest.mark.parametrize("beyond", [False, True])
+@pytest.mark.parametrize("r", [4, 8, 32])
+def test_bounded_warp_matches_exact_bilinear(rng, r, beyond):
+    """The level solve's warp == exact bilinear of the edge-clamped frame
+    at the flow clamped to +-r (displacements beyond r saturate)."""
+    from lk_tpu.flow.dense import _bounded_warp
 
-    # chunk build bit-identical to per-frame build within the flag
-    fr = np.stack([img, np.roll(img, 2, axis=1),
-                   np.roll(img, 4, axis=1)]).astype(np.float32)
-    ch = dense._build_levels_padded(jnp.asarray(fr), cfg, dp, plan,
-                                    batched=True)
-    for i, f in enumerate(fr):
-        per = dense.build_frame_levels_prepadded(jnp.asarray(f), cfg, dp,
-                                                 plan)
-        for lv, stack in zip(per, ch):
-            np.testing.assert_array_equal(np.asarray(stack[i]),
-                                          np.asarray(lv))
+    h, w = 48, 80
+    img = (rng.random((h, w)) * 255).astype(np.float32)
+    scale = 2.5 * r if beyond else 0.98 * r
+    flow = ((rng.random((h, w, 2)) * 2 - 1) * scale).astype(np.float32)
+    got = np.asarray(_bounded_warp(jnp.asarray(img), jnp.asarray(flow), r))
+    np.testing.assert_allclose(got, _np_warp(img, flow, r), atol=2e-3)
+
+
+@pytest.mark.parametrize("h,w", [(67, 99), (91, 160), (108, 192), (135, 240)])
+def test_video_chain_matches_per_pair_sizes(rng, h, w):
+    """dense_pyramidal_lk_video == per-pair dense_pyramidal_lk at odd and
+    1080p-aspect sizes (ceil-halved odd levels, depth clamped by window)."""
+    from lk_tpu.flow.dense import dense_pyramidal_lk_video
+    from lk_tpu.io.scenes import affine_scene, shift_map
+
+    fr = affine_scene(rng, h, w, shift_map(1.4, -0.9), n_frames=3).frames
+    vid = dense_pyramidal_lk_video(jnp.asarray(fr))
+    assert vid.flow.shape == (2, h, w, 2)
+    for t in range(2):
+        pair = dense_pyramidal_lk(jnp.asarray(fr[t]), jnp.asarray(fr[t + 1]))
+        np.testing.assert_allclose(np.asarray(vid.flow[t]),
+                                   np.asarray(pair.flow), atol=1e-4)
+        np.testing.assert_array_equal(np.asarray(vid.valid[t]),
+                                      np.asarray(pair.valid))
+
+
+# --- TF32 emulation: DEFAULT-precision matmuls on tensor-core GPUs ----------
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 explicit mantissa bits), nearest-even."""
+    b = jax.lax.bitcast_convert_type(x.astype(jnp.float32), jnp.uint32)
+    b = (b + jnp.uint32(0xFFF) + ((b >> 13) & 1)) & jnp.uint32(0xFFFFE000)
+    return jax.lax.bitcast_convert_type(b, jnp.float32)
+
+
+@pytest.fixture
+def tf32_dots(monkeypatch):
+    """Every jax.lax.dot_general call rounds its operands to TF32 (what a
+    DEFAULT-precision f32 matmul does on a tensor-core GPU)."""
+    orig = jax.lax.dot_general
+
+    def dot(a, b, dimension_numbers, precision=None,
+            preferred_element_type=None, **kw):
+        return orig(_tf32(a), _tf32(b), dimension_numbers,
+                    precision=jax.lax.Precision.HIGHEST,
+                    preferred_element_type=preferred_element_type, **kw)
+
+    monkeypatch.setattr(jax.lax, "dot_general", dot)
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (135, 240), (270, 480)])
+def test_pyr_down_fast_tf32_vs_cv2(rng, tf32_dots, shape):
+    """pyr_down(fast=True) with TF32-rounded operands stays within 0.5
+    intensity of cv.pyrDown (the documented fast-path budget)."""
+    from lk_tpu.ops.blur import pyr_down
+
+    img = (rng.random(shape) * 255).astype(np.float32)
+    got = np.asarray(jax.jit(lambda x: pyr_down(x, fast=True))(
+        jnp.asarray(img)))
+    ref = cv.pyrDown(img)
+    assert got.shape == ref.shape
+    err = np.abs(got - ref).max()
+    assert err < 0.5, err
+    assert err > 0.0   # the emulation really rounded something
+
+
+@pytest.mark.parametrize("scene", ["shift", "zoom+rot"])
+def test_dense_epe_gate_tf32(rng, tf32_dots, scene):
+    """The dense EPE gate (< 0.1 px vs exact ground truth, bench.py's
+    limit) holds with the coarse pyramid's matmuls rounded to TF32."""
+    from lk_tpu.flow.dense import dense_pyramidal_lk_video
+    from lk_tpu.io.scenes import (affine_scene, grid_epe, shift_map,
+                                  zoom_rot_map)
+
+    h, w = 216, 384
+    m = (shift_map(3.7, -2.2) if scene == "shift"
+         else zoom_rot_map(h, w, 1.004, 0.3))
+    sc = affine_scene(rng, h, w, m, n_frames=2)
+    flow = np.asarray(jax.jit(lambda f: dense_pyramidal_lk_video(f).flow)(
+        jnp.asarray(sc.frames)))[0]
+    epe = grid_epe(flow, sc.gt, step=8)
+    assert epe < 0.1, epe

@@ -194,8 +194,9 @@ def test_batched_matches_per_stream(rng):
 
 
 def test_batched_fast_pyramid_parity(rng):
-    """fast_pyramid (bf16 MXU coarse levels) stays within the OpenCV parity
-    budget: the level-0 refinement sees the exact frames either way."""
+    """fast_pyramid (banded-matmul coarse levels at DEFAULT precision)
+    stays within the OpenCV parity budget: the level-0 refinement sees the
+    exact frames either way."""
     import cv2 as cv
     import dataclasses
 
@@ -281,3 +282,65 @@ def test_row_band_exit_and_reenter_parity(rng):
                 us[inband].all()
                 and np.allclose(bp[inband], up[inband], atol=0.5)
             ), (bp[inband], up[inband])
+
+
+def test_row_band_tracker_parity(rng):
+    """track_points_batched with a row_band covering the points ==
+    unbanded, bit-for-bit (band-cropped levels + band-relative memory
+    coords; pipeline serving crops to the ROI row band)."""
+    from lk_tpu.flow.sparse import track_points_batched
+
+    b, n, h, w = 2, 6, 140, 160
+    prev = (rng.random((b, h, w)) * 255).astype(np.float32)
+    nxt = np.roll(prev, (2, -1), axis=(1, 2))
+    # points confined to a mid-frame row band (the ROI situation)
+    pts = np.stack([rng.uniform(20, w - 20, (b, n)),
+                    rng.uniform(60, 86, (b, n))], -1).astype(np.float32)
+    val = np.ones((b, n), bool)
+    args = (jnp.asarray(prev), jnp.asarray(nxt), jnp.asarray(pts),
+            jnp.asarray(val))
+    ref = track_points_batched(*args)
+    banded = track_points_batched(*args, row_band=(58, 88))
+    for x, y in zip(banded, ref):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("fast_pyramid", [False, True])
+@pytest.mark.parametrize("row_band", [None, (40, 100)])
+@pytest.mark.parametrize("b,n", [(1, 5), (3, 12)])
+def test_batched_plain_matches_per_stream(rng, b, n, row_band, fast_pyramid):
+    """The plain batched tracker (vmapped dynamic_slice windows) ==
+    per-stream track_points over batch size, point count, row band and
+    fast pyramid (the fast coarse levels stay within the parity budget)."""
+    import dataclasses
+
+    from lk_tpu.config import LKConfig
+    from lk_tpu.flow.sparse import track_points, track_points_batched
+    from lk_tpu.io.scenes import affine_scene, shift_map
+
+    h, w = 140, 176
+    prevs, nxts = [], []
+    for s in range(b):
+        sc = affine_scene(rng, h, w, shift_map(1.5 + 0.5 * s, -1.0),
+                          n_frames=2)
+        prevs.append(sc.frames[0])
+        nxts.append(sc.frames[1])
+    lo, hi = (40, 100) if row_band else (16, h - 16)
+    pts = np.stack([rng.uniform(16, w - 16, (b, n)),
+                    rng.uniform(lo + 4, hi - 4, (b, n))], -1).astype(
+        np.float32)
+    valid = np.ones((b, n), bool)
+    valid[0, -1] = False
+    cfg = dataclasses.replace(LKConfig(), fast_pyramid=fast_pyramid)
+    bp, bs, be = track_points_batched(
+        jnp.asarray(np.stack(prevs)), jnp.asarray(np.stack(nxts)),
+        jnp.asarray(pts), jnp.asarray(valid), cfg, row_band=row_band)
+    tol = 0.1 if fast_pyramid else 1e-4
+    for s in range(b):
+        sp, ss, _ = track_points(jnp.asarray(prevs[s]), jnp.asarray(nxts[s]),
+                                 jnp.asarray(pts[s]), jnp.asarray(valid[s]))
+        np.testing.assert_array_equal(np.asarray(bs[s]), np.asarray(ss))
+        ok = np.asarray(ss)
+        np.testing.assert_allclose(np.asarray(bp[s])[ok], np.asarray(sp)[ok],
+                                   atol=tol, err_msg=f"stream {s}")
+    assert np.isfinite(np.asarray(be)).all()

@@ -43,15 +43,8 @@ def test_vp_trajectory_matches_golden():
                                 n_frames=36)
     pipe = VideoPipeline(PipelineConfig(), src_size=(860, 484), chunk=8)
     pipe.run(iter(scene))
-    got = np.array(pipe.csv_rows, np.float64)
-
-    with open(GOLDEN) as f:
-        rows = list(csv.reader(f))[1:]
-    want = np.array([[float(a), float(b)] for a, b in rows], np.float64)
-
-    assert len(got) == len(want), (len(got), len(want))
     # float drift tolerance; row count and trajectory shape must be identical
-    np.testing.assert_allclose(got, want, atol=0.05)
+    _check_or_regen(GOLDEN, pipe.csv_rows, ["x", "y"])
 
 
 def _multievent_frames():

@@ -38,7 +38,7 @@ def test_transform_runs_on_producer():
         return chunk.astype(np.float32) * 2
 
     got = list(ChunkPrefetcher(_frames(6), chunk=3, transform=xf))
-    assert all(t == "lk-tpu-ingest" for t in tids)
+    assert all(t == "lk-ingest" for t in tids)
     assert got[0].dtype == np.float32
     assert got[1][2, 0, 0, 0] == 10.0
 

@@ -1,7 +1,7 @@
 """Multi-host scale-out: 2-process CPU cluster via jax.distributed (gloo).
 
 The reference is single-process (SURVEY.md §5.8); the framework's multi-host
-story is stream-sharding over DCN with per-host decode.  This test launches
+story is stream-sharding across hosts with per-host decode.  This test launches
 two real OS processes (tests/multihost_worker.py), each owning 2 CPU devices
 of a global 4-device data mesh, and asserts the globally-sharded pipeline
 reproduces the single-process baseline on the rows each host owns.

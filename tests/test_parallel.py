@@ -126,7 +126,7 @@ def test_mesh_sharded_serving_matches_single_device():
     """The PRODUCTION batched serving path (feed_staged -> step_batched:
     fold carry, frame-band tracking, compacted outputs) sharded over an
     8-device 'streams' mesh == the single-device run, per stream.  This is
-    the serving program the chip actually runs (pipeline/step.py
+    the serving program the device actually runs (pipeline/step.py
     step_batched), not the vmap(step) of shard_pipeline_step."""
     import dataclasses
 
